@@ -30,6 +30,12 @@ def sim_stack_cached():
 def sim_stack():
     return sim_stack_cached()
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the port's kernels); skips "
+        "without one")
+
 try:
     import hypothesis  # noqa: F401  (real package wins when available)
 except ModuleNotFoundError:
