@@ -5,19 +5,33 @@
 
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels from src/repro_torch/csrc;
-  3. each kernel against its plain torch version at the serving path's
-     shapes (H=12, KV=2, hd=128, page 16), with kernel, plain, library
-     (SDPA over the gathered context) and lower-bound times;
-  4. serve: full-width qwen2-vl-2b (28 layers, bf16, max_len 4096,
+  2. build the hand-written CUDA kernels from src/repro_torch/csrc (one
+     nvcc per source, all at once);
+  3. the paged kernels against their plain torch versions at qwen2-vl's
+     serving shapes (H=12, KV=2, hd=128, page 16), with kernel, plain,
+     library (SDPA over the gathered context) and lower-bound times;
+  4. prefill_attention against its plain version at gemma3-27b's shapes
+     (H=32, KV=16, hd=128; chunks, decodes, sliding window 1024, a decode
+     past the end of the slot buffer, softcap), with the same times
+     (SDPA with a boolean mask and GQA as the library call);
+  5. serve: full-width qwen2-vl-2b (28 layers, bf16, max_len 4096,
      16 slots, policy tcm) through repro_torch.launch.serve.build_stack —
      real profiler, estimator and classifier — then the engine on an MH
-     workload; every request must finish with tokens, both kernels must
-     have launched, and JAX must not be loaded;
-  5. model check: the served weights, cut to two layers, give the same
+     workload; every request must finish with tokens, both paged kernels
+     must have launched, and JAX must not be loaded;
+  6. model check: the served weights, cut to two layers, give the same
      logits with attention through the kernels as through their plain
      torch versions, on a small input;
-  6. a JSON line of every kernel's numbers, then the device JSON line last.
+  7. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
+     4 dense slots, policy tcm), which build_stack's "real" mode puts on
+     the dense-slot path (sliding window), on 8 MH requests; every request
+     must finish with tokens, prefill_attention must have launched and
+     neither paged kernel, JAX must not be loaded; peak device memory;
+  8. gemma3 model check: the served weights cut to their first 6 layers
+     (5 local, 1 global), a 1536-token prompt and one decode step through
+     the dense cache, attention through the kernel against its plain
+     version;
+  9. a JSON line of every kernel's numbers, then the device JSON line last.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 repository's sources are not beside this script, or when any check fails.
@@ -25,6 +39,8 @@ repository's sources are not beside this script, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -32,10 +48,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-H, KV, HD, PAGE = 12, 2, 128, 16
+H, KV, HD, PAGE = 12, 2, 128, 16          # qwen2-vl-2b
+GH, GKV, GMAX, GWIN = 32, 16, 2048, 1024   # gemma3-27b, max_len, window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2
@@ -206,11 +225,65 @@ def _row(err, ms, plain_ms, lib_ms, bytes_, flops, label):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": lib_ms}
+    lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
     print(f"{label}: max_err={err:.3e} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib} "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
           f"{bytes_} bytes, {flops} flops)", flush=True)
     return row
+
+
+def dense_work(Sq, n_keys, q_start, window):
+    """(bytes, flops) the dense attention needs at gemma3's widths: q read
+    and out written once, each key some query sees read once (K and V),
+    and the two products over the visible (query, key) pairs (a row that
+    sees no key averages over all of them)."""
+    qpos = q_start + np.arange(Sq)
+    hi = np.minimum(n_keys, qpos + 1)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else \
+        np.zeros_like(qpos)
+    none = lo >= hi
+    lo, hi = np.where(none, 0, lo), np.where(none, n_keys, hi)
+    pairs = int((hi - lo).sum())
+    keys = int(hi.max() - lo.min())
+    bytes_ = 2 * Sq * GH * HD * 2 + 2 * keys * GKV * HD * 2
+    return bytes_, 4 * pairs * GH * HD
+
+
+def check_dense(torch, mod, gen, Sq, n_keys, q_start, window, softcap,
+                flush, label):
+    """prefill_attention at gemma3's shapes: q (1, Sq, 32, 128); K/V the
+    first n_keys rows of a (1, 2048, 16, 128) slot buffer (a separate
+    (1, Sq, 16, 128) pair for the cache-less case, n_keys == Sq)."""
+    S = max(n_keys, GMAX) if n_keys != Sq else n_keys
+    q = torch.randn((1, Sq, GH, HD), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kb = torch.randn((1, S, GKV, HD), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vb = torch.randn((1, S, GKV, HD), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = kb[:, :n_keys], vb[:, :n_keys]
+    kw = dict(q_start=q_start, window=window, softcap=softcap)
+    out = mod.prefill_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = mod.plain(q.float(), k.float(), v.float(), **kw)
+    err = (out.float() - ref).abs().max().item()
+    if not math.isfinite(err) or err > TOL:
+        fail(f"prefill_attention {label}: max_abs_err {err} > {TOL}")
+    ms = time_ms(torch, lambda: mod.prefill_attention(q, k, v, **kw),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: mod.plain(q, k, v, **kw), reps=5)
+    lib_ms = None
+    if softcap == 0.0:       # SDPA has no softcap: no library call for it
+        from repro_torch.kernels.ref import causal_mask
+        mask = causal_mask(q_start, Sq, n_keys, window, device="cuda")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qt, kt, vt, mask),
+                         flush=flush)
+    bytes_, flops = dense_work(Sq, n_keys, q_start, window)
+    return _row(err, ms, plain_ms, lib_ms, bytes_, flops,
+                f"prefill_attention {label}: Sq={Sq} n_keys={n_keys} "
+                f"q_start={q_start} window={window} softcap={softcap}")
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +359,32 @@ def serve_phase(torch, n_requests: int, breakdown: bool):
     empty = [rid for rid, n in tokens.items() if n == 0]
     if empty:
         fail(f"serve: requests with no tokens: {empty}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("paged_attention", "paged_prefill_attention"):
+        if counts[name] <= 0:
             fail(f"serve: kernel {name} never launched on the main path")
     if "jax" in sys.modules:
         fail("serve: jax was imported")
     return executor, counts
+
+
+class PlainOps:
+    """``kernels.ops`` with every kernel replaced by its plain torch
+    version, on the card (swapped into ``models.layers`` for a check)."""
+
+    @staticmethod
+    def paged_attention(*args, **kw):
+        from repro_torch.kernels import paged_attention as mod
+        return mod.plain(*args, **kw)
+
+    @staticmethod
+    def paged_prefill_attention(*args, **kw):
+        from repro_torch.kernels import paged_prefill_attention as mod
+        return mod.plain(*args, **kw)
+
+    @staticmethod
+    def prefill_attention(*args, **kw):
+        from repro_torch.kernels import prefill_attention as mod
+        return mod.plain(*args, **kw)
 
 
 def model_check(torch, executor, depth=2):
@@ -308,15 +401,8 @@ def model_check(torch, executor, depth=2):
     import dataclasses
 
     from repro_torch.cache.paged import PagedStackStore
-    from repro_torch.kernels import paged_attention as dec
-    from repro_torch.kernels import paged_prefill_attention as pre
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import tree_map
-
-    class PlainOps:   # the kernels' plain versions, on the card
-        paged_attention = staticmethod(dec.plain)
-        paged_prefill_attention = staticmethod(pre.plain)
 
     full = executor.cfg
     if full.stages() != [((full.pattern()[0],), full.num_layers)]:
@@ -326,10 +412,8 @@ def model_check(torch, executor, depth=2):
     toks = torch.randint(1, full.vocab_size, (B, C + 1), generator=gen)
     bt = torch.tensor([[i * 7 + j for j in range(7)] for i in range(B)],
                       dtype=torch.int32, device="cuda")
-    cut = dict(executor.params, stages=[tree_map(
-        lambda a: a[:depth], executor.params["stages"][0],
-        is_leaf=torch.is_tensor)])
     cfg = dataclasses.replace(full, num_layers=depth)
+    layers = [{"b0": executor.layers[0]["b0"][:depth]}]
     outs = {}
     kernel_ops = L.kops
     for name, ops in (("kernel", kernel_ops), ("plain", PlainOps)):
@@ -351,9 +435,10 @@ def model_check(torch, executor, depth=2):
                     B, n)
                 with torch.no_grad():
                     lg, _, _ = T.forward(
-                        cut, cfg, toks[:, start:start + n].cuda(),
-                        positions=pos, cache=cache, attn_impl="kernel",
-                        last_pos=new_lens - 1)
+                        executor.params, cfg,
+                        toks[:, start:start + n].cuda(), positions=pos,
+                        cache=cache, attn_impl="kernel",
+                        last_pos=new_lens - 1, layers=layers)
                 logits.append(lg.float())
         finally:
             L.kops = kernel_ops
@@ -374,13 +459,184 @@ def model_check(torch, executor, depth=2):
              "plain path")
 
 
+def gemma_serve_phase(torch, n_requests: int):
+    """Full-width gemma3-27b through build_stack's real mode, which puts
+    it on the dense-slot path (sliding-window attention is outside the
+    paged protocol), then the engine on an MH workload. The engine admits
+    by pages, so its KV pages are only accounting here (the slot caches
+    hold the KV): kv_pages is sized so that no prompt is rejected. One
+    slot stays free of running requests (max_num_seqs = max_slots - 1):
+    an arriving request's admission-time isolated run takes a slot."""
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_stack
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.metrics import fmt_table, summarize
+    from repro_torch.serving.request import State
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    slots = 4
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    executor, classifier, engine_cfg, profile, _ = build_stack(
+        "gemma3-27b", "real", full=True, max_len=GMAX, max_slots=slots,
+        kv_pages=4096, device="cuda")
+    t_build = time.perf_counter() - t0
+    cfg = executor.cfg
+    print(f"model {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, H={cfg.num_heads}, KV={cfg.num_kv_heads}, "
+          f"hd={cfg.hd}, window {cfg.sliding_window}, vocab "
+          f"{cfg.vocab_size}, dtype {cfg.dtype}; legacy={executor.legacy}, "
+          f"{executor.max_slots} slots at max_len {executor.max_len}; "
+          f"stack built (weights, warm-up, {len(profile.records)} profiled "
+          f"requests, estimator, classifier) in {t_build:.2f}s; device "
+          f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    if cfg.num_layers != 62 or cfg.d_model != 5376 or not executor.legacy:
+        fail("gemma3 serve: not the full-width gemma3-27b on the dense path")
+    engine_cfg = dataclasses.replace(engine_cfg, max_num_seqs=slots - 1)
+    reqs = generate(WorkloadConfig(mix="MH", rate=2.0,
+                                   num_requests=n_requests, seed=0))
+    engine = Engine(make_policy("tcm"), executor, classifier, engine_cfg)
+    t1 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = {r.rid: len(executor.emitted.get(r.rid, [])) for r in reqs}
+    print(fmt_table(summarize(done), f"gemma3-27b (full) | tcm | MH | "
+                                     f"{n_requests} requests"))
+    n_tok = sum(tokens.values())
+    print(f"gemma3 serve: {len(done)}/{len(reqs)} finished, "
+          f"{engine.iterations} iterations, {n_tok} tokens in "
+          f"{t_run:.2f}s wall = {n_tok / t_run:.1f} tokens/s; launches "
+          f"{counts}; peak device memory {peak / 2**30:.2f} GiB "
+          f"({peak} bytes); prompt tokens "
+          f"{sorted(r.prompt_tokens for r in reqs)}", flush=True)
+    unfinished = [r.rid for r in reqs if r.state is not State.FINISHED]
+    if unfinished:
+        fail(f"gemma3 serve: requests not finished: {unfinished}")
+    empty = [rid for rid, n in tokens.items() if n == 0]
+    if empty:
+        fail(f"gemma3 serve: requests with no tokens: {empty}")
+    if counts["prefill_attention"] <= 0:
+        fail("gemma3 serve: prefill_attention never launched")
+    for name in ("paged_attention", "paged_prefill_attention"):
+        if counts[name] != 0:
+            fail(f"gemma3 serve: the paged kernel {name} launched")
+    if "jax" in sys.modules:
+        fail("gemma3 serve: jax was imported")
+    return executor, counts
+
+
+class CheckedOps:
+    """``kernels.ops`` for a check inside the forward: each
+    ``prefill_attention`` call runs the kernel and its plain version on the
+    same inputs, records how far apart they are, and returns the plain
+    output, so every layer of the check sees the same inputs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def prefill_attention(self, q, k, v, **kw):
+        from repro_torch.kernels import prefill_attention as mod
+        a = mod.prefill_attention(q, k, v, **kw).float()
+        b = mod.plain(q, k, v, **kw)
+        d, bf = (a - b.float()), b.float()
+        self.calls.append((tuple(q.shape), kw.get("window", 0),
+                           (d.square().mean().sqrt()
+                            / bf.square().mean().sqrt()).item(),
+                           (d.abs().max() / bf.abs().max()).item()))
+        return b
+
+
+def gemma_model_check(torch, executor, depth=6, prompt=1536):
+    """The served full-width gemma3 weights cut to their first ``depth``
+    layers (one period: 5 sliding-window, 1 global) on a ``prompt``-token
+    prefill and one decode step through a dense slot cache.
+
+    Gate: inside that forward, every ``prefill_attention`` call (each
+    layer, both steps) runs the kernel and its plain version on the same
+    inputs; their outputs must agree within rms 1e-2 and max 5e-2 of the
+    plain output's rms and max. Reported, not gated: the logits of the
+    forward with attention through the kernel against the forward through
+    the plain version. With these random weights the attention logits
+    have a std of ~170 (q and k elements ~13), so softmax rows are nearly
+    one-hot and a row whose top two keys nearly tie picks a different key
+    on a last-bit difference; one layer's bf16-level difference grows
+    ~10x per layer over 1536 tokens, so the two free-running forwards part
+    whatever the kernel's accuracy."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    full = executor.cfg
+    cfg = dataclasses.replace(full, num_layers=depth)
+    if cfg.pattern() != full.pattern()[:depth]:
+        fail("gemma3 model check: the cut is not the model's first layers")
+    # the served layers in model order, regrouped into the cut's stages
+    order = iter([executor.layers[si][f"b{bi}"][li]
+                  for si, (period, reps) in enumerate(full.stages())
+                  for li in range(reps) for bi in range(len(period))])
+    layers = []
+    for period, reps in cfg.stages():
+        per = {f"b{bi}": [] for bi in range(len(period))}
+        for _ in range(reps):
+            for bi in range(len(period)):
+                per[f"b{bi}"].append(next(order))
+        layers.append(per)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    toks = torch.randint(1, full.vocab_size, (1, prompt + 1),
+                         generator=gen).cuda()
+    checked = CheckedOps()
+    outs = {}
+    kernel_ops = L.kops
+    for name, ops in (("kernel", kernel_ops), ("plain", PlainOps),
+                      ("checked", checked)):
+        cache = T.init_cache(cfg, 1, GMAX, device="cuda")
+        logits = []
+        L.kops = ops
+        try:
+            for start, n in ((0, prompt), (prompt, 1)):
+                with torch.no_grad():
+                    lg, cache, _ = T.forward(
+                        executor.params, cfg, toks[:, start:start + n],
+                        cache=cache, q_start=start, last_only=True,
+                        layers=layers)
+                logits.append(lg.float())
+        finally:
+            L.kops = kernel_ops
+        outs[name] = torch.cat(logits, dim=1)
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail("gemma3 model check: non-finite logits")
+    for shape, window, rel_rms, rel_max in checked.calls:
+        print(f"  prefill_attention in the forward, q {shape}, window "
+              f"{window}: kernel vs plain rms {rel_rms:.2e}, max "
+              f"{rel_max:.2e} (relative to the plain output)")
+    a, b = outs["kernel"], outs["plain"]
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"gemma3 model check (full width, first {depth} layers "
+          f"{cfg.pattern()}, prefill {prompt} + decode 1 through the dense "
+          f"cache): {len(checked.calls)} prefill_attention calls checked; "
+          f"free-running forwards, kernel vs plain: last-position logits "
+          f"{tuple(a.shape)}, max|diff| {(a - b).abs().max().item():.4f} "
+          f"of max|logit| {b.abs().max().item():.4f}, argmax agreement "
+          f"{agree:.2f}", flush=True)
+    if len(checked.calls) != 2 * depth:
+        fail("gemma3 model check: not every layer's attention was checked")
+    bad = [c for c in checked.calls if not (c[2] <= 1e-2 and c[3] <= 5e-2)]
+    if bad:
+        fail(f"gemma3 model check: kernel and plain version part inside "
+             f"the forward: {bad}")
+
+
 def profile_phase(torch, executor):
     """Where a serving step's time goes (``--profile`` only): a B=16
     decode step at context 2000 through the executor's own step, its host
     enqueue time against enqueue-plus-device time and a profiler table of
     its device time; then the decode kernel's time against context length
     at B=1 (its cost per 64-key tile)."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import paged_attention as dec
@@ -427,6 +683,43 @@ def profile_phase(torch, executor):
         print(f"decode kernel B=1 context {n}: {ms:.4f} ms")
 
 
+def gemma_profile_phase(torch, executor):
+    """Where a gemma3 decode token's time goes (``--profile`` only): one
+    request's decode forward at context 2000 over a slot cache, host
+    enqueue against enqueue-plus-device time, and a profiler table of its
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.params import tree_leaves
+    cache = executor.caches[0]
+    tok = torch.ones((1, 1), dtype=torch.int64, device="cuda")
+
+    def step():
+        cache["idx"].fill_(2000)
+        executor._legacy_forward(tok, None, cache, 2000)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step()
+    host = (time.perf_counter() - t) / 5
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t) / 5
+    print(f"gemma3 decode forward at context 2000: host enqueue "
+          f"{host * 1e3:.2f} ms, enqueue+device {total * 1e3:.2f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    print("3 gemma3 decode forwards:")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=8))
+    for leaf in tree_leaves(cache, torch.is_tensor):
+        leaf.zero_()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -462,6 +755,7 @@ def main():
     phase("kernels vs plain")
     from repro_torch.kernels import paged_attention as dec
     from repro_torch.kernels import paged_prefill_attention as pre
+    from repro_torch.kernels import prefill_attention as dense
     gen = torch.Generator(device="cuda").manual_seed(0)
     scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
@@ -474,6 +768,19 @@ def main():
                           3000, 4000, 4095, 4096, 4096], flush)
     rows["paged_prefill_attention"] = check_prefill(
         torch, pre, gen, [0, 1024, 3584, 0], [512, 300, 512, 0], 512, flush)
+
+    phase("prefill_attention vs plain")
+    dense_rows = [check_dense(torch, dense, gen, *case, flush, label)
+                  for label, case in (
+                      ("chunk", (512, 2048, 1536, 0, 0.0)),
+                      ("chunk, window", (512, 2048, 1536, GWIN, 0.0)),
+                      ("decode", (1, 2048, 2047, 0, 0.0)),
+                      ("decode, window", (1, 2048, 2047, GWIN, 0.0)),
+                      ("cache-less", (1536, 1536, 0, 0, 0.0)),
+                      ("decode past the buffer, window",
+                       (1, 2048, 2100, GWIN, 0.0)),
+                      ("chunk, softcap", (512, 2048, 1536, 0, 50.0)))]
+    rows["prefill_attention"] = dense_rows[0]
     del scratch
 
     phase("serve")
@@ -483,6 +790,20 @@ def main():
     if args.profile:
         phase("profile")
         profile_phase(torch, executor)
+    del executor          # free qwen2-vl before gemma3-27b's 57 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("gemma3 serve")
+    g_executor, g_counts = gemma_serve_phase(torch, 8)
+    phase("gemma3 model check")
+    gemma_model_check(torch, g_executor)
+    if args.profile:
+        phase("gemma3 profile")
+        gemma_profile_phase(torch, g_executor)
+    del g_executor
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = [
         dict(name="paged_attention", route="cuda",
@@ -495,6 +816,11 @@ def main():
              replaces="src/repro/kernels/paged_prefill_attention.py:91",
              launches=counts["paged_prefill_attention"],
              **rows["paged_prefill_attention"]),
+        dict(name="prefill_attention", route="cuda",
+             source="src/repro_torch/csrc/prefill_attention.cu",
+             replaces="src/repro/kernels/prefill_attention.py:69",
+             launches=g_counts["prefill_attention"],
+             **rows["prefill_attention"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(card)

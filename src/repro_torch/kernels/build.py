@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("paged_attention", "paged_prefill_attention")
+SOURCES = ("paged_attention", "paged_prefill_attention", "prefill_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

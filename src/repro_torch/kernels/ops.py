@@ -9,10 +9,13 @@ from __future__ import annotations
 
 from . import paged_attention as _decode
 from . import paged_prefill_attention as _prefill
-from .ref import ref_paged_attention, ref_paged_prefill_attention
+from . import prefill_attention as _dense
+from .ref import (ref_paged_attention, ref_paged_prefill_attention,
+                  ref_prefill_attention)
 
 KERNELS = {"paged_attention": _decode,
-           "paged_prefill_attention": _prefill}
+           "paged_prefill_attention": _prefill,
+           "prefill_attention": _dense}
 
 
 def _route(t) -> str:
@@ -38,6 +41,15 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_start,
             softcap=softcap)
     return ref_paged_prefill_attention(q, k_pages, v_pages, block_table,
                                        q_start, new_lens, softcap=softcap)
+
+
+def prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
+                      softcap: float = 0.0):
+    if _route(q) == "cuda":
+        return _dense.prefill_attention(q, k, v, q_start=q_start,
+                                        window=window, softcap=softcap)
+    return ref_prefill_attention(q, k, v, q_start=q_start, window=window,
+                                 softcap=softcap)
 
 
 def launch_counts() -> dict[str, int]:

@@ -20,13 +20,27 @@ def _softcap(logits, softcap: float):
     return logits
 
 
+def causal_mask(q_start, q_len: int, kv_len: int, window: int = 0,
+                device=None):
+    """mask (q_len, kv_len): query i (global position q_start + i) may
+    attend key j."""
+    qpos = q_start + torch.arange(q_len, device=device)[:, None]
+    kpos = torch.arange(kv_len, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m = m & (kpos > qpos - window)
+    return m
+
+
 def ref_prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
                           softcap: float = 0.0):
     """Chunked-prefill causal attention.
 
     q: (B, Sq, H, hd) — queries at global positions [q_start, q_start+Sq)
-    k, v: (B, Skv, KV, hd) — the full context so far (Skv >= q_start+Sq)
-    window: sliding window size (0 = full causal)
+    k, v: (B, Skv, KV, hd) — the context so far; a q_start beyond Skv
+       (a decode past the end of a full slot buffer) sees every key
+    window: sliding window size (0 = full causal). A row that sees no key
+       gets uniform weights over all Skv (the finite NEG_INF mask).
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -34,12 +48,7 @@ def ref_prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
         rep = H // KV
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    dev = q.device
-    qpos = q_start + torch.arange(Sq, device=dev)[:, None]
-    kpos = torch.arange(k.shape[1], device=dev)[None, :]
-    mask = kpos <= qpos
-    if window > 0:
-        mask = mask & (kpos > qpos - window)
+    mask = causal_mask(q_start, Sq, k.shape[1], window, device=q.device)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / \
         math.sqrt(hd)
     logits = _softcap(logits, softcap)

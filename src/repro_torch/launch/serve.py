@@ -7,8 +7,14 @@ Executors:
   sim  — cost model derived from the FULL assigned architecture (A100-class
          coefficients); workload-scale scheduler experiments.
   real — the torch model (the reduced config unless ``--full``) on the
-         GPU, with attention through the hand-written paged kernels;
-         ``--device cpu`` runs it on the CPU through their plain versions.
+         GPU: the batched paged path, with attention through the
+         hand-written paged kernels, or — for archs outside the paged
+         protocol (gemma3's sliding window) — the dense-slot path;
+         ``--device cpu`` runs it on the CPU through the kernels' plain
+         versions.
+  real-legacy — the sequential dense-slot path for any arch (the
+         token-parity oracle), attention through the hand-written dense
+         prefill kernel.
 """
 from __future__ import annotations
 
@@ -31,24 +37,30 @@ def build_stack(arch: str, executor_kind: str = "sim", *,
                 naive_classifier: bool = False, model_preset: str | None = None,
                 kv_pages: int | None = None, token_budget: int = 512,
                 slo_scale: float = 5.0, full: bool = False,
-                max_len: int = 256, device="cuda"):
+                max_len: int = 256, max_slots: int = 16, device="cuda"):
     """(executor, classifier, engine_cfg, profile, estimator) for one model.
 
     Real mode takes the reduced config unless ``full`` (the assigned
     configuration at its published widths), and warms the executor up
     before profiling starts, so the first profiled request does not pay
-    the kernels' build and the device's start-up.
+    the kernels' build and the device's start-up. ``max_slots`` is the
+    number of dense slot caches the legacy path keeps (and, with
+    ``max_len``, the default KV capacity).
     """
     if executor_kind == "sim":
         cm = (make_cost_model(model_preset) if model_preset
               else cost_model_for_arch(get_config(arch)))
         executor = SimExecutor(cm)
         prof_reqs = profiling_workload()
-    elif executor_kind == "real":
+    elif executor_kind in ("real", "real-legacy"):
+        # "real" = batched paged path (dense-slot for archs outside the
+        # paged protocol); "real-legacy" = the sequential dense-slot oracle.
         # An explicit kv_pages sizes the executor's paged stores directly —
         # KV capacity decoupled from the max_slots x max_len slot geometry
         exec_cfg = ExecutorConfig(
-            max_slots=16, max_len=max_len, num_pages=kv_pages).resolved()
+            max_slots=max_slots, max_len=max_len,
+            legacy=(executor_kind == "real-legacy"),
+            num_pages=kv_pages).resolved()
         model_cfg = get_config(arch) if full else get_reduced(arch)
         executor = ModelExecutor(model_cfg, exec_cfg, device=device)
         warm_up(executor)
@@ -58,9 +70,7 @@ def build_stack(arch: str, executor_kind: str = "sim", *,
         # admission path and the paged stores agree by construction
         kv_pages = exec_cfg.num_pages
     else:
-        raise NotImplementedError(
-            f"executor {executor_kind!r} is not ported yet (ROADMAP.md: "
-            "dense slot cache and the legacy executor)")
+        raise ValueError(f"unknown executor kind {executor_kind!r}")
     profile = WorkloadProfiler(executor, arch).build(prof_reqs)
     est = ImpactEstimator.train(profile)
     classifier = (NaiveClassifier(est) if naive_classifier
@@ -99,7 +109,7 @@ def serve(arch: str, policy: str, workload: WorkloadConfig, *,
           model_preset: str | None = None, kv_pages: int | None = None,
           token_budget: int = 512, slo_scale: float = 5.0, **real_kwargs):
     """Build the stack and run the engine on ``workload``; ``real_kwargs``
-    (``full``, ``max_len``, ``device``) go to
+    (``full``, ``max_len``, ``max_slots``, ``device``) go to
     ``build_stack``. Returns (finished requests, engine)."""
     executor, classifier, engine_cfg, _, _ = build_stack(
         arch, executor_kind, naive_classifier=naive_classifier,
@@ -119,20 +129,23 @@ def main():
     ap.add_argument("--mix", default="MH", choices=["T0", "ML", "MH"])
     ap.add_argument("--rate", type=float, default=2.0)
     ap.add_argument("--num-requests", type=int, default=200)
-    ap.add_argument("--executor", default="sim", choices=["sim", "real"])
+    ap.add_argument("--executor", default="sim",
+                    choices=["sim", "real", "real-legacy"])
     ap.add_argument("--naive-classifier", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true",
                     help="real mode: the assigned config at full width")
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--max-slots", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
     wl = WorkloadConfig(mix=args.mix, rate=args.rate,
                         num_requests=args.num_requests, seed=args.seed)
     real = {}
-    if args.executor == "real":
-        real = dict(full=args.full, max_len=args.max_len, device=args.device)
+    if args.executor != "sim":
+        real = dict(full=args.full, max_len=args.max_len,
+                    max_slots=args.max_slots, device=args.device)
     done, engine = serve(args.arch, args.policy, wl,
                          executor_kind=args.executor,
                          naive_classifier=args.naive_classifier, **real)

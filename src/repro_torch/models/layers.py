@@ -1,6 +1,7 @@
-"""Core transformer layers: norms, grouped-GQA attention over the paged KV
-cache, and the dense SwiGLU MLP. Plain functions on tensors: params are
-dict trees produced from ParamDecl declarations in transformer.py.
+"""Core transformer layers: norms, grouped-GQA attention (over the paged KV
+cache, over a dense slot cache, or with no cache), and the dense SwiGLU MLP.
+Plain functions on tensors: params are dict trees produced from ParamDecl
+declarations in transformer.py.
 
 The serving forward calls these once per layer per step, so each layer's
 weights are regrouped once at load (``fuse_block``): the three QKV
@@ -41,25 +42,29 @@ def _softcap(logits, cap: float):
     return logits
 
 
-def fuse_block(bp, cfg: ModelConfig) -> dict:
-    """One ATTN block's weights (a layer of the ``block_decls`` tree)
-    regrouped for the forward: ``ln1``/``ln2`` scales, ``wqkv`` (D,
-    (H+2KV)·hd) and its bias, ``wo`` (H·hd, D), and the MLP."""
-    a = bp["attn"]
+def fuse_attn(a, cfg: ModelConfig) -> dict:
+    """One layer's attention weights (the ``attn`` subtree) regrouped:
+    ``wqkv`` (D, (H+2KV)·hd) and its bias, ``wo`` (H·hd, D)."""
     D = cfg.d_model
     fused = {
-        "ln1": 1.0 + bp["ln1"].to(torch.float32),
-        "ln2": 1.0 + bp["ln2"].to(torch.float32),
         "wqkv": torch.cat([a["wq"].reshape(D, -1), a["wk"].reshape(D, -1),
                            a["wv"].reshape(D, -1)], dim=1),
         "bqkv": None,
         "wo": a["wo"].reshape(-1, D),
-        "mlp": bp["mlp"],
     }
     if cfg.qkv_bias:
         fused["bqkv"] = torch.cat([a["bq"].reshape(-1), a["bk"].reshape(-1),
                                    a["bv"].reshape(-1)])
     return fused
+
+
+def fuse_block(bp, cfg: ModelConfig) -> dict:
+    """One ATTN or ATTN_L block's weights (a layer of the ``block_decls``
+    tree) regrouped for the forward: ``ln1``/``ln2`` scales, the
+    ``fuse_attn`` weights, and the MLP."""
+    return {"ln1": 1.0 + bp["ln1"].to(torch.float32),
+            "ln2": 1.0 + bp["ln2"].to(torch.float32),
+            **fuse_attn(bp["attn"], cfg), "mlp": bp["mlp"]}
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +103,89 @@ def mha(q, k, v, mask, *, softcap: float = 0.0):
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bcgqk,bkcd->bqcgd", w, v)
     return out.reshape(B, Tq, H, hd)
+
+
+def quant_kv(x):
+    """Symmetric per-(token, head) int8 quantization: (q8, scale)."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-6) / \
+        127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _maybe_dequant(x, compute_dtype, scale=None):
+    if x.dtype == torch.int8:
+        return (x.to(torch.float32) * scale).to(compute_dtype)
+    return x.to(compute_dtype)
+
+
+def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
+                    window: int = 0, cache=None, kv_override=None,
+                    is_causal: bool = True):
+    """Dense attention sub-block (norm handled by the caller).
+
+    x: (B, S, D); p: the layer's ``fuse_attn`` weights; rope:
+    ``rope_tables`` for these positions (not applied with
+    ``kv_override``). cache: None (the whole sequence at once, queries at
+    positions ``q_start + i``) or the dense slot cache of one layer, a dict
+    {k, v: (B, Smax, KV, hd) bf16 or int8, [k_scale, v_scale: (B, Smax,
+    KV, 1) f32 for int8], idx: tokens written so far}. The chunk's K/V are
+    written at ``[idx, idx+S)`` in place — clamped to ``Smax - S`` as
+    JAX's ``dynamic_update_slice`` clamps it — and the queries, at
+    positions ``idx + i`` (the unclamped ``idx``), attend over the first
+    ``min(idx+S, Smax)`` keys. Causal attention, cached or not, goes
+    through ``kernels.ops.prefill_attention`` (the hand-written kernel on
+    the card); cross attention (``kv_override``) and the bidirectional
+    encoder (``is_causal=False``) use ``mha``, as in the JAX package.
+
+    Returns (out (B, S, D), new_cache): the cache dict with ``idx + S``,
+    sharing the updated buffers.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    qkv = qkv_proj(x, p, cfg)
+    v = qkv[:, :, H + KV:]
+    if kv_override is None:
+        qk = apply_rope_tables(qkv[:, :, :H + KV], rope)
+        q, k = qk[:, :, :H], qk[:, :, H:]
+    else:
+        q = qkv[:, :, :H]
+    softcap = cfg.logit_softcap
+    new_cache = None
+    if cache is not None:
+        idx = int(cache["idx"])
+        ck, cv = cache["k"], cache["v"]
+        Smax = ck.shape[1]
+        if S > Smax:
+            raise ValueError(f"a chunk of {S} tokens does not fit a cache of "
+                             f"{Smax}")
+        at, n = min(idx, Smax - S), min(idx + S, Smax)
+        new_cache = dict(cache, idx=idx + S)
+        ks = vs = None
+        if ck.dtype == torch.int8:
+            (k, k_sc), (v, v_sc) = quant_kv(k), quant_kv(v)
+            cache["k_scale"][:, at:at + S] = k_sc
+            cache["v_scale"][:, at:at + S] = v_sc
+            ks, vs = cache["k_scale"][:, :n], cache["v_scale"][:, :n]
+        ck[:, at:at + S] = k
+        cv[:, at:at + S] = v
+        out = kops.prefill_attention(
+            q.contiguous(), _maybe_dequant(ck[:, :n], q.dtype, ks),
+            _maybe_dequant(cv[:, :n], q.dtype, vs), q_start=idx,
+            window=window, softcap=softcap)
+    elif kv_override is not None:
+        ck, cv = kv_override  # cross attention (whisper decoder)
+        mask = torch.ones((S, ck.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = mha(q, ck.to(q.dtype), cv.to(q.dtype), mask, softcap=softcap)
+    elif is_causal:
+        out = kops.prefill_attention(q.contiguous(), k, v, q_start=q_start,
+                                     window=window, softcap=softcap)
+    else:
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        out = mha(q, k, v, mask, softcap=softcap)
+    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
 def paged_attention_block(x, p, cfg: ModelConfig, *, rope, store, ctx,

@@ -1,12 +1,12 @@
-"""Unified multi-family model: parameter declarations for every block type,
-and the forward over the batched paged KV cache.
+"""Unified multi-family model: parameter and cache declarations for every
+block type, and the forward of attention-only decoders — over the batched
+paged KV cache, over the dense slot cache, or with no cache.
 
 Layer stacking: the decoder pattern is decomposed into (period, repeats)
 stages; per stage, weights are stacked on a leading ``layers`` dim (the
 JAX package's layout, so weights carry over path for path), and the
-forward walks the repeats with a Python loop. Only the paged-cache serving
-forward is ported so far; the dense slot cache, sliding-window, MoE, SSM,
-xLSTM and encoder-decoder forwards are listed in ROADMAP.md.
+forward walks the repeats with a Python loop. The MoE, SSM, xLSTM and
+encoder-decoder forwards are listed in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 from . import layers as L
 from .config import (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN, ENC_ATTN, MAMBA,
                      MAMBA_MOE, MLSTM, MOE_BLOCKS, SLSTM, ModelConfig)
-from .params import ParamDecl, decl, tree_map, tree_map_decls
+from .params import ParamDecl, decl, init_params, tree_map, tree_map_decls
 from .rope import rope_tables
 
 # ---------------------------------------------------------------------------
@@ -179,6 +179,92 @@ def model_decls(cfg: ModelConfig) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Cache declarations (dense slot cache)
+# ---------------------------------------------------------------------------
+
+def cache_decls(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, window_cache: bool = False) -> dict:
+    """Decl tree for the decode/prefill cache (dense JetStream-style layout)."""
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    H = cfg.num_heads
+
+    def attn_cache(bt):
+        S = max_len
+        if window_cache and bt == ATTN_L and cfg.sliding_window > 0:
+            S = min(max_len, cfg.sliding_window)
+        d = {
+            "k": decl((batch, S, KV, hd), ("batch", "cache_seq", "kv_heads", None),
+                      init="zeros", dtype=dtype),
+            "v": decl((batch, S, KV, hd), ("batch", "cache_seq", "kv_heads", None),
+                      init="zeros", dtype=dtype),
+        }
+        if dtype == torch.int8:  # per-(token, head) quantization scales
+            for s in ("k_scale", "v_scale"):
+                d[s] = decl((batch, S, KV, 1),
+                            ("batch", "cache_seq", "kv_heads", None),
+                            init="ones", dtype=torch.float32)
+        if bt == DEC_ATTN:
+            cross_dt = torch.bfloat16 if dtype == torch.int8 else dtype
+            d["ck"] = decl((batch, cfg.encoder_seq, KV, hd),
+                           ("batch", None, "kv_heads", None), init="zeros",
+                           dtype=cross_dt)
+            d["cv"] = decl((batch, cfg.encoder_seq, KV, hd),
+                           ("batch", None, "kv_heads", None), init="zeros",
+                           dtype=cross_dt)
+        return d
+
+    def block_cache(bt):
+        if bt in (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN):
+            return attn_cache(bt)
+        if bt in (MAMBA, MAMBA_MOE):
+            return {
+                "conv": decl((batch, cfg.mamba_d_conv - 1, cfg.d_inner),
+                             ("batch", None, "inner"), init="zeros", dtype=dtype),
+                "ssm": decl((batch, cfg.d_inner, cfg.mamba_d_state),
+                            ("batch", "inner", "state"), init="zeros",
+                            dtype=torch.float32),
+            }
+        if bt == MLSTM:
+            DI = int(cfg.xlstm_proj_factor * cfg.d_model)
+            hdi = DI // H
+            return {
+                "C": decl((batch, H, hdi, hdi), ("batch", "heads", None, None),
+                          init="zeros", dtype=torch.float32),
+                "n": decl((batch, H, hdi), ("batch", "heads", None),
+                          init="zeros", dtype=torch.float32),
+                "m": decl((batch, H), ("batch", "heads"), init="fill",
+                          fill=-1e30, dtype=torch.float32),
+            }
+        if bt == SLSTM:
+            hds = cfg.d_model // H
+            return {k: decl((batch, H, hds), ("batch", "heads", None),
+                            init="ones" if k == "n" else "zeros",
+                            dtype=torch.float32)
+                    for k in ("c", "n", "m", "h")}
+        raise ValueError(bt)
+
+    return {
+        "stages": [
+            {f"b{i}": _stack(block_cache(bt), reps) for i, bt in enumerate(period)}
+            for period, reps in cfg.stages()
+        ],
+        "idx": decl((), (), init="zeros", dtype=torch.int32),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    """Materialise ``cache_decls`` (zeros, ones and fills: nothing is
+    drawn) with its buffers on ``device``. ``idx`` stays a host tensor:
+    the host reads it every step (the write offset and the queries'
+    positions)."""
+    decls = cache_decls(cfg, batch, max_len, dtype)
+    tree = init_params({"stages": decls["stages"]}, None, device=device)
+    tree["idx"] = torch.zeros((), dtype=torch.int32)
+    return tree
+
+
 def paged_supported(cfg: ModelConfig) -> bool:
     """True when every decoder block can use the paged-KV cache protocol
     (global causal attention, optionally MoE). SSM/xLSTM state and
@@ -198,11 +284,17 @@ def cast_params(params, dtype: torch.dtype):
                     else a, params, is_leaf=torch.is_tensor)
 
 
-def layer_params(params, cfg: ModelConfig) -> list:
+def layer_params(params, cfg: ModelConfig, *, release: bool = False) -> list:
     """Per-stage, per-block lists of each layer's weights as the forward
     uses them: ``out[si][f"b{i}"][li]`` is layer ``li``'s ``fuse_block``
-    dict (views of the stacked weights where the layout allows, small
-    copies where it regroups). The executor builds them once at load."""
+    dict for ATTN and ATTN_L blocks (views of the stacked weights where the
+    layout allows, small copies where it regroups), its raw subtree for
+    other blocks. The executor builds them once at load.
+
+    ``release`` drops each block's stacked q/k/v projections (and biases)
+    from ``params`` once its layers are fused, so the fused copy does not
+    double them (2.7 B parameters at gemma3-27b's widths); the forward
+    then needs these lists."""
     out = []
     for (period, reps), stage in zip(cfg.stages(), params["stages"]):
         per = {}
@@ -210,14 +302,18 @@ def layer_params(params, cfg: ModelConfig) -> list:
             stacked = stage[f"b{bi}"]
             views = [tree_map(lambda a, li=li: a[li], stacked,
                               is_leaf=torch.is_tensor) for li in range(reps)]
-            per[f"b{bi}"] = [L.fuse_block(v, cfg) if bt == ATTN else v
+            fuse = bt in (ATTN, ATTN_L)
+            per[f"b{bi}"] = [L.fuse_block(v, cfg) if fuse else v
                              for v in views]
+            if fuse and release:
+                for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+                    stacked["attn"].pop(name, None)
         out.append(per)
     return out
 
 
 # ---------------------------------------------------------------------------
-# Forward (paged cache)
+# Forward
 # ---------------------------------------------------------------------------
 
 def _apply_paged_block(x, bp, bt, cfg, *, rope, store, ctx, attn_impl):
@@ -235,64 +331,120 @@ def _apply_paged_block(x, bp, bt, cfg, *, rope, store, ctx, attn_impl):
     return x + L.mlp_block(h, bp["mlp"]), store
 
 
-def forward(params, cfg: ModelConfig, tokens, *, positions, cache=None,
-            last_pos=None, attn_impl="gather", layers=None):
-    """Forward over the batched paged KV cache.
+def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache):
+    """ATTN or ATTN_L block with the dense slot cache of this layer (written
+    in place) or none."""
+    h = L.rms_norm_scaled(x, bp["ln1"], cfg.norm_eps)
+    attn_out, _ = L.attention_block(
+        h, bp, cfg, rope=rope, q_start=q_start, window=cfg.window_for(bt),
+        cache=cache)
+    x = x + attn_out
+    h = L.rms_norm_scaled(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(h, bp["mlp"])
 
-    tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope.
+
+def dense_supported(cfg: ModelConfig) -> bool:
+    """True when the port runs this decoder on the dense slot cache or
+    with no cache: attention-only blocks, global or sliding-window. MoE,
+    SSM, xLSTM and the encoder-decoder wait for their slice (ROADMAP.md,
+    queue 1)."""
+    return not cfg.is_encoder_decoder and all(
+        bt in (ATTN, ATTN_L) for period, _ in cfg.stages() for bt in period)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, positions=None,
+            mm_embeds=None, cache=None, q_start=0, last_only=False,
+            last_pos=None, attn_impl="gather", layers=None):
+    """Unified forward.
+
+    tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope; default
+      ``q_start + arange(S)``.
+    mm_embeds: (B, N_mm, D) stub patch/frame embeddings (VLM) — replace the
+      first N_mm token embeddings.
     params: the ``model_decls`` tree, already in the compute dtype (see
       ``cast_params``); ``layers`` optionally gives its ``layer_params``
       so a call does not regroup the weights again.
-    cache: the paged cache — a dict with "stages" (per-stage
-      {"b<i>": PagedStackStore}, written in place), "block_table"
-      (B, max_pages), "lengths" (B,) context written per row, and
-      "new_lens" (B,) valid new tokens per row. attn_impl ('gather' |
-      'kernel') picks the attention backend (see
-      layers.paged_attention_block).
+    cache: None (the whole sequence, queries at ``q_start + i``); the
+      dense slot cache from ``init_cache`` (``"stages"`` and ``"idx"``;
+      its buffers are written in place); OR the paged cache of the batched
+      serving path — a dict with "stages" (per-stage {"b<i>":
+      PagedStackStore}, written in place), "block_table" (B, max_pages),
+      "lengths" (B,) context written per row, and "new_lens" (B,) valid
+      new tokens per row. attn_impl ('gather' | 'kernel') picks the paged
+      attention backend (see layers.paged_attention_block); dense and
+      cache-less attention always goes through
+      ``kernels.ops.prefill_attention``.
     last_pos: (B,) int — gather this position per row before the lm_head
-      (ragged packed prefill: only each row's last real token needs logits).
-    Returns (logits (B,S,V), new_cache, aux_loss).
+      (ragged packed prefill: only each row's last real token needs
+      logits). last_only: the final position only (serving prefill).
+    Returns (logits (B,S,V), new_cache_or_None, aux_loss); a dense
+    ``new_cache`` shares the cache's buffers, with ``idx`` advanced by S.
     """
-    if cache is None or "block_table" not in cache:
-        raise NotImplementedError(
-            "only the paged-cache forward is ported (ROADMAP.md: dense "
-            "slot cache and attention_block)")
-    if not paged_supported(cfg):
+    paged = cache is not None and "block_table" in cache
+    if paged and not paged_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: block pattern outside the paged protocol "
             "(ROADMAP.md: SSM/xLSTM/whisper, sliding window)")
+    if not paged and not dense_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: only attention-only decoders run on the dense "
+            "cache or without one (ROADMAP.md: MoE; SSM/xLSTM/whisper)")
     B, S = tokens.shape
     dev = tokens.device
+    if positions is None:
+        positions = (q_start + torch.arange(S, device=dev))[None].expand(B, S)
     embed = params["embed"]
     x = embed[tokens.long()]
+    if mm_embeds is not None:
+        # stub patch/frame embeddings replace the first N_mm token embeds
+        x[:, :mm_embeds.shape[1]] = mm_embeds.to(x.dtype)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_style)
-    bt_, lengths, new_lens = (cache["block_table"], cache["lengths"],
-                              cache["new_lens"])
-    # per-step geometry, the same for every layer
-    ctx = {"block_table": bt_, "lengths": lengths, "new_lens": new_lens,
-           "totals": lengths + new_lens}
     if layers is None:
         layers = layer_params(params, cfg)
-    for si, (period, reps) in enumerate(cfg.stages()):
-        stores = cache["stages"][si]
-        slots = {name: st.slots(bt_, lengths, new_lens, S)
-                 for name, st in stores.items()}
-        for li in range(reps):
-            for bi, bt in enumerate(period):
-                name = f"b{bi}"
-                x, stores[name] = _apply_paged_block(
-                    x, layers[si][name][li], bt, cfg, rope=rope,
-                    store=stores[name],
-                    ctx=dict(ctx, slots=slots[name], layer=li),
-                    attn_impl=attn_impl)
+    if paged:
+        bt_, lengths, new_lens = (cache["block_table"], cache["lengths"],
+                                  cache["new_lens"])
+        # per-step geometry, the same for every layer
+        ctx = {"block_table": bt_, "lengths": lengths, "new_lens": new_lens,
+               "totals": lengths + new_lens}
+        for si, (period, reps) in enumerate(cfg.stages()):
+            stores = cache["stages"][si]
+            slots = {name: st.slots(bt_, lengths, new_lens, S)
+                     for name, st in stores.items()}
+            for li in range(reps):
+                for bi, bt in enumerate(period):
+                    name = f"b{bi}"
+                    x, stores[name] = _apply_paged_block(
+                        x, layers[si][name][li], bt, cfg, rope=rope,
+                        store=stores[name],
+                        ctx=dict(ctx, slots=slots[name], layer=li),
+                        attn_impl=attn_impl)
+        new_cache = {"stages": cache["stages"], "block_table": bt_,
+                     "lengths": ctx["totals"], "new_lens": new_lens}
+    else:
+        idx = int(cache["idx"]) if cache is not None else None
+        for si, (period, reps) in enumerate(cfg.stages()):
+            for li in range(reps):
+                for bi, bt in enumerate(period):
+                    name = f"b{bi}"
+                    blk = None
+                    if cache is not None:
+                        blk = {k: a[li] for k, a in
+                               cache["stages"][si][name].items()}
+                        blk["idx"] = idx
+                    x = _apply_attnish(x, layers[si][name][li], bt, cfg,
+                                       rope=rope, q_start=q_start, cache=blk)
+        new_cache = None if cache is None else {
+            "stages": cache["stages"],
+            "idx": torch.tensor(idx + S, dtype=torch.int32)}
 
     if last_pos is not None:
         # packed ragged prefill: each row's last real position only
-        idx = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
-        x = torch.gather(x, 1, idx)
+        idx_ = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx_)
+    elif last_only:
+        x = x[:, -1:]  # serving prefill: lm_head on the final position only
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = embed.T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
-    new_cache = {"stages": cache["stages"], "block_table": bt_,
-                 "lengths": ctx["totals"], "new_lens": new_lens}
     return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)

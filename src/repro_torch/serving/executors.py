@@ -6,12 +6,15 @@ device throughput, quadratic attention term, per-iteration decode cost,
 modality preprocess/encode stage costs. Used for workload-scale scheduler
 experiments (the scheduler sees the identical engine API either way).
 
-ModelExecutor — runs the real torch model, on the GPU by default. Each
-engine iteration runs as one packed ragged prefill step plus one fused
-decode step over the whole running set, with per-layer KV in flat paged
-stores indexed by the engine allocator's block tables (DESIGN.md §Batched
-execution path). On CUDA, attention goes through the hand-written paged
-kernels.
+ModelExecutor — runs the real torch model, on the GPU by default. The
+default batched mode executes each engine iteration as one packed ragged
+prefill step plus one fused decode step over the whole running set, with
+per-layer KV in flat paged stores indexed by the engine allocator's block
+tables (DESIGN.md §Batched execution path). ``legacy=True`` — and every
+arch outside the paged protocol (sliding-window gemma3) — runs one
+``forward`` per request over a dense per-request slot cache: the
+token-parity oracle of the batched path. On CUDA, attention goes through
+the hand-written kernels (paged decode and prefill; dense prefill).
 """
 from __future__ import annotations
 
@@ -25,6 +28,12 @@ import numpy as np
 from repro_torch.core.profiler import ProfileRecord
 
 from .request import TERMINAL_STATES, Modality, Request
+
+
+class SlotCapacityError(RuntimeError):
+    """Legacy dense-slot executor ran out of request slots (the seed raised
+    a bare IndexError from ``free_slots.pop()``). Raise ``max_slots`` or
+    lower ``EngineConfig.max_num_seqs``."""
 
 
 @dataclass
@@ -287,13 +296,19 @@ class ModelExecutor:
     captured graph) stays O(log) per axis, bounded by
     ``recompile_bound()``.
 
+    ``legacy=True`` keeps one ``forward`` per request per iteration over a
+    dense slot cache per request (``max_slots`` of them, at ``max_len``,
+    updated in place and zeroed in place when a slot is released); it is
+    the token-parity oracle of the batched path and the path of archs the
+    paged protocol does not take (sliding-window attention). Only the
+    last position's logits are computed, the only ones it reads.
+
     Greedy tokens (argmax, fed back as the next decode input) are emitted
     into ``emitted``. Every timed region ends in a device synchronise, so
     the profile and the engine clock measure device work, not launches.
 
-    Not ported yet (ROADMAP.md): ``legacy=True`` (the dense-slot oracle),
-    archs outside the paged protocol, MoE blocks, and the page-chain
-    migration payloads.
+    Not ported yet (ROADMAP.md): MoE, SSM, xLSTM and encoder-decoder
+    archs, and the page-chain migration payloads.
     """
 
     # finished-request token lists retained for post-run inspection
@@ -308,21 +323,14 @@ class ModelExecutor:
         from repro_torch.cache import BlockAllocator
         from repro_torch.device import resolve_device
         from repro_torch.models import transformer as T
-        from repro_torch.models.config import ATTN
         from repro_torch.models.params import init_params, tree_map
         if config is None:
             config = ExecutorConfig()
         config = config.resolved()
-        if config.legacy:
+        if not T.dense_supported(cfg):
             raise NotImplementedError(
-                "legacy=True (the dense-slot oracle) is not ported yet "
-                "(ROADMAP.md: dense slot cache and attention_block)")
-        if not T.paged_supported(cfg) or any(
-                bt != ATTN for period, _ in cfg.stages() for bt in period):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention-only archs on the paged path "
-                "are ported (ROADMAP.md: MoE; SSM/xLSTM/whisper; sliding "
-                "window)")
+                f"{cfg.name}: only attention-only archs (global or sliding "
+                "window) are ported (ROADMAP.md: MoE; SSM/xLSTM/whisper)")
         self.torch = torch
         self.T = T
         self.device = resolve_device(device)
@@ -330,6 +338,8 @@ class ModelExecutor:
         self.cfg = cfg
         self.max_len = config.max_len
         self.max_slots = config.max_slots
+        self.paged_ok = T.paged_supported(cfg)
+        self.legacy = config.legacy or not self.paged_ok
         # ragged=False pins the block table at the max_pages cap — the
         # fixed-geometry ablation/baseline for the context-sweep benchmark
         self.ragged = config.ragged
@@ -352,7 +362,17 @@ class ModelExecutor:
                 tree_map(lambda a: a.to(self.device), params,
                          is_leaf=torch.is_tensor), cfg.dtype)
         self.params = params
-        self.layers = T.layer_params(params, cfg)
+        # the forward reads the fused weights only: the stacked q/k/v
+        # projections are dropped as each block is fused
+        self.layers = T.layer_params(params, cfg, release=True)
+        # dense per-request slot caches: only the legacy path keeps them
+        # (the batched path retires the slot store for attention KV)
+        self.caches = ([T.init_cache(cfg, 1, self.max_len,
+                                     device=self.device)
+                        for _ in range(self.max_slots)]
+                       if self.legacy else None)
+        self.slot_of: dict[str, int] = {}
+        self.free_slots = list(range(self.max_slots))
         # page accounting: replaced by the engine's allocator via
         # bind_allocator; standalone use gets a private one sized by the
         # resolved config (launch plumbs EngineConfig.kv_pages through
@@ -410,8 +430,10 @@ class ModelExecutor:
 
     @property
     def supports_prefix_cache(self) -> bool:
-        """The batched paged path shares KV between requests."""
-        return True
+        """Only the batched paged path shares KV between requests; the
+        legacy dense-slot oracle keeps per-request caches and opts out
+        (the engine then never claims or publishes)."""
+        return not self.legacy
 
     @property
     def prefix_token_limit(self) -> int:
@@ -506,9 +528,25 @@ class ModelExecutor:
             self._prompt_cache[req.rid] = toks
         return toks
 
+    def _tokens_for(self, req: Request, start: int, n: int):
+        toks = self._prompt_tokens(req)[start:start + n]
+        return self.torch.from_numpy(toks).to(self.device)[None]
+
+    # -- legacy slot management ---------------------------------------------
+    def acquire_slot(self, req: Request):
+        if req.rid not in self.slot_of:
+            if not self.free_slots:
+                raise SlotCapacityError(
+                    f"no free slot for {req.rid}: all {self.max_slots} "
+                    "slots busy — raise max_slots or lower "
+                    "EngineConfig.max_num_seqs")
+            self.slot_of[req.rid] = self.free_slots.pop()
+        return self.slot_of[req.rid]
+
     def release_slot(self, req: Request):
         """Drop a request's executor-side state (engine calls this on
-        preemption and on finish)."""
+        preemption and on finish); a legacy slot's cache, ``idx``
+        included, is zeroed in place."""
         self._ctx.pop(req.rid, None)
         if req.state in TERMINAL_STATES:
             # terminal (finished/rejected/failed/cancelled) requests never
@@ -524,28 +562,41 @@ class ModelExecutor:
             # recompute-style preemption: the re-prefill re-emits the same
             # deterministic tokens from scratch
             self.emitted.pop(req.rid, None)
+        slot = self.slot_of.pop(req.rid, None)
+        if slot is not None:
+            from repro_torch.models.params import tree_leaves
+            for leaf in tree_leaves(self.caches[slot], self.torch.is_tensor):
+                leaf.zero_()
+            self.free_slots.append(slot)
 
     # -- profiler interface -------------------------------------------------
     def isolated_run(self, req: Request) -> ProfileRecord:
         n = min(req.prompt_tokens, self.max_len - 8)
+        meas = n
         t0 = time.perf_counter()
-        rid = f"__profile__{req.rid}"
-        # admission-time profiling borrows pages from the live pool; a
-        # near-full pool must clamp the measurement, not crash serving.
-        # Prefill is ~linear in tokens at these sizes (the residual
-        # pricing in isolated_e2e already relies on that), so measure
-        # the longest prefix that fits and extrapolate; a completely
-        # full pool falls back to the last measured per-token rate.
-        meas = min(n, self.allocator.available_pages
-                   * self.allocator.page_size)
-        if meas > 0:
-            self.allocator.allocate(rid, meas)
-            try:
-                toks = self._prompt_tokens(req)[:meas]
-                self._paged_prefill_call([(rid, toks, 0, 0, meas)])
-                self._sync()
-            finally:
-                self.allocator.free(rid)
+        if self.legacy:
+            slot = self.acquire_slot(req)
+            self.caches[slot] = self._legacy_forward(
+                self._tokens_for(req, 0, n), None, self.caches[slot], 0)[1]
+            self._sync()
+        else:
+            rid = f"__profile__{req.rid}"
+            # admission-time profiling borrows pages from the live pool; a
+            # near-full pool must clamp the measurement, not crash serving.
+            # Prefill is ~linear in tokens at these sizes (the residual
+            # pricing in isolated_e2e already relies on that), so measure
+            # the longest prefix that fits and extrapolate; a completely
+            # full pool falls back to the last measured per-token rate.
+            meas = min(n, self.allocator.available_pages
+                       * self.allocator.page_size)
+            if meas > 0:
+                self.allocator.allocate(rid, meas)
+                try:
+                    toks = self._prompt_tokens(req)[:meas]
+                    self._paged_prefill_call([(rid, toks, 0, 0, meas)])
+                    self._sync()
+                finally:
+                    self.allocator.free(rid)
         prefill = time.perf_counter() - t0
         if meas < n:
             prefill = (prefill * n / meas if meas > 0
@@ -622,10 +673,47 @@ class ModelExecutor:
         t0 = time.perf_counter()
         for req, units in encode_work:
             self.encode_chunk(req, units)
-        self._batched_iteration(self._prefill_rows(prefill_work),
-                                self._decode_rows(decode_reqs))
+        step = self._legacy_iteration if self.legacy else \
+            self._batched_iteration
+        step(self._prefill_rows(prefill_work),
+             self._decode_rows(decode_reqs))
         self._sync()
         return time.perf_counter() - t0
+
+    # -- legacy sequential path (token-parity oracle) ------------------------
+    def _legacy_forward(self, tokens, positions, cache, q_start):
+        """One request's forward over its slot cache (written in place):
+        (last position's logits (1, 1, V), cache with ``idx`` advanced)."""
+        with self.torch.no_grad():
+            logits, cache, _ = self.T.forward(
+                self.params, self.cfg, tokens, positions=positions,
+                cache=cache, q_start=q_start, last_only=True,
+                layers=self.layers)
+        return logits, cache
+
+    def _legacy_iteration(self, prefill_rows, decode_rows):
+        torch = self.torch
+        for req, rope_start, n, done in prefill_rows:
+            # slot acquired only after the n>0 check: the seed's
+            # `n <= 0: continue` leaked the just-acquired slot
+            slot = self.acquire_slot(req)
+            logits, self.caches[slot] = self._legacy_forward(
+                self._tokens_for(req, rope_start, n), None,
+                self.caches[slot], rope_start)
+            self._ctx[req.rid] = self._ctx.get(req.rid, 0) + n
+            if done:
+                tok = int(torch.argmax(logits[0, -1]))
+                self.emitted.setdefault(req.rid, []).append(tok)
+        for req in decode_rows:
+            slot = self.acquire_slot(req)
+            pos = min(req.prompt_tokens + req.decoded - 1, self.max_len - 2)
+            tok = torch.full((1, 1), self.emitted[req.rid][-1],
+                             dtype=torch.int64, device=self.device)
+            logits, self.caches[slot] = self._legacy_forward(
+                tok, torch.full((1, 1), pos, dtype=torch.int64,
+                                device=self.device), self.caches[slot], pos)
+            self._ctx[req.rid] += 1
+            self.emitted[req.rid].append(int(torch.argmax(logits[0, 0])))
 
     # -- batched paged path ---------------------------------------------------
     @staticmethod

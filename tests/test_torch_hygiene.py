@@ -66,15 +66,22 @@ def test_copied_modules_are_the_reference_program(rel):
 
 
 def test_serve_run_leaves_jax_unloaded():
+    """Real-mode serve runs of the batched path and of the dense-slot path
+    (``real-legacy``, and gemma3, which takes it by itself) in a fresh
+    process never load JAX."""
     code = (
         "import sys, repro_torch\n"
         "from repro_torch.launch.serve import serve\n"
         "from repro_torch.serving.workload import WorkloadConfig\n"
-        "done, eng = serve('qwen2-vl-2b', 'tcm', WorkloadConfig(mix='ML', "
-        "rate=50, num_requests=6, seed=0), executor_kind='real', "
+        "for arch, kind in (('qwen2-vl-2b', 'real'), "
+        "('qwen2-vl-2b', 'real-legacy'), ('gemma3-27b', 'real')):\n"
+        "    done, eng = serve(arch, 'tcm', WorkloadConfig(mix='ML', "
+        "rate=50, num_requests=6, seed=0), executor_kind=kind, "
         "device='cpu')\n"
-        "assert len(done) == 6, len(done)\n"
-        "assert all(eng.executor.emitted.get(r.rid) for r in done)\n"
+        "    assert len(done) == 6, len(done)\n"
+        "    assert all(eng.executor.emitted.get(r.rid) for r in done)\n"
+        "    assert eng.executor.legacy == (kind == 'real-legacy' or "
+        "arch == 'gemma3-27b')\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok', eng.iterations)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

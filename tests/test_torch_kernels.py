@@ -153,8 +153,16 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     out = ops.paged_attention(q, kp, vp, bt, ln)
     np.testing.assert_array_equal(
         out.numpy(), tref.ref_paged_attention(q, kp, vp, bt, ln).numpy())
+    g = rng(2)
+    dq, dk, dv = (torch.from_numpy(normal(g, 1, n, h, 32))
+                  for n, h in ((3, 4), (9, 2), (9, 2)))
+    out = ops.prefill_attention(dq, dk, dv, q_start=6, window=4)
+    np.testing.assert_array_equal(
+        out.numpy(), tref.ref_prefill_attention(dq, dk, dv, q_start=6,
+                                                window=4).numpy())
     assert ops.launch_counts() == {"paged_attention": 0,
-                                   "paged_prefill_attention": 0}
+                                   "paged_prefill_attention": 0,
+                                   "prefill_attention": 0}
 
 
 def test_other_devices_raise():

@@ -89,3 +89,100 @@ def test_cuda_paged_prefill_matches_plain(case):
                                atol=2e-2, rtol=0)
     pad = torch.arange(Sq, device="cuda")[None, :] >= new_lens[:, None]
     assert (out[pad] == 0).all()
+
+
+GPU_DENSE = [  # (B, Sq, n_keys, Smax, H, KV, hd, q_start, window, softcap)
+    (2, 40, 100, 128, 8, 1, 128, 60, 0, 0.0),        # MQA, slot-buffer view
+    (1, 300, 500, 512, 32, 16, 128, 200, 64, 0.0),   # G = 2, window
+    (2, 20, 20, 20, 16, 1, 64, 0, 0, 0.0),           # G = 16, cache-less
+    (1, 512, 2048, 2048, 32, 16, 128, 1536, 1024, 0.0),
+    (2, 24, 60, 64, 8, 4, 64, 36, 0, 50.0),          # softcap
+    (1, 33, 43, 48, 4, 2, 256, 10, 16, 30.0),        # hd 256: FMA path
+    (2, 9, 30, 32, 6, 3, 72, 21, 8, 0.0),            # hd 72: FMA path
+    (1, 1, 2048, 2048, 32, 16, 128, 2047, 1024, 0.0),  # decode
+    (1, 1, 2048, 2048, 32, 16, 128, 2100, 1024, 0.0),  # q_start > n_keys
+    (2, 4, 200, 256, 8, 2, 128, 300, 0, 0.0),        # every key visible
+    (1, 1, 2048, 2048, 32, 16, 128, 3500, 1024, 0.0),  # no key in window
+    (1, 3, 50, 64, 8, 2, 64, 2000, 40, 0.0),         # mixed: last rows see none
+]
+
+
+def _dense_case(B, Sq, n_keys, Smax, H, KV, hd, seed):
+    g = np.random.default_rng(seed)
+    q = g.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = g.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    v = g.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DENSE, ids=str)
+def test_cuda_prefill_attention_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import prefill_attention as dense
+    B, Sq, n, Smax, H, KV, hd, q_start, window, cap = case
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _dense_case(B, Sq, n, Smax, H, KV, hd, seed=hd + n))
+    k, v = k[:, :n], v[:, :n]          # views of the slot buffers
+    out = dense.prefill_attention(q, k, v, q_start=q_start, window=window,
+                                  softcap=cap)
+    torch.cuda.synchronize()
+    ref = dense.plain(q.float(), k.float(), v.float(), q_start=q_start,
+                      window=window, softcap=cap)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_attention_reads_a_fused_qkv_view():
+    """k and v as the columns of a fused (B, S, H + 2KV, hd) activation, as
+    the cache-less forward passes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import prefill_attention as dense
+    B, S, H, KV, hd = 2, 70, 8, 2, 128
+    g = np.random.default_rng(5)
+    qkv = torch.from_numpy(g.standard_normal(
+        (B, S, H + 2 * KV, hd)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = qkv[:, :, :H].contiguous()
+    k, v = qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    out = dense.prefill_attention(q, k, v, q_start=0, window=32)
+    torch.cuda.synchronize()
+    ref = dense.plain(q.float(), k.float(), v.float(), q_start=0, window=32)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_attention_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import prefill_attention as dense
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    bad = [
+        ((t(1, 4, 8, 64, dtype=torch.float32), t(1, 8, 2, 64),
+          t(1, 8, 2, 64)), {}, "bfloat16"),
+        ((t(1, 8, 4, 64).transpose(1, 2), t(1, 8, 2, 64), t(1, 8, 2, 64)),
+         {}, "bad shapes|contiguous"),
+        ((t(1, 4, 6, 64), t(1, 8, 4, 64), t(1, 8, 4, 64)), {}, "H % KV"),
+        ((t(1, 4, 32, 64), t(1, 8, 1, 64), t(1, 8, 1, 64)), {}, "G <="),
+        ((t(1, 4, 2, 512), t(1, 8, 2, 512), t(1, 8, 2, 512)), {}, "hd <="),
+        ((t(1, 4, 4, 64), t(1, 8, 64, 2).transpose(2, 3),
+          t(1, 8, 2, 64)), {}, "contiguous|bad shapes"),
+        ((t(1, 4, 4, 64), t(1, 0, 2, 64), t(1, 0, 2, 64)), {}, "one key"),
+        ((t(1, 4, 4, 64), t(1, 8, 2, 64), t(1, 8, 2, 64)),
+         {"q_start": -1}, ">= 0"),
+        ((t(1, 4, 4, 64), t(2, 8, 2, 64), t(2, 8, 2, 64)), {}, "match"),
+        ((t(1, 4, 4, 64), t(1, 8, 2, 64).cpu(), t(1, 8, 2, 64)), {},
+         "CUDA"),
+    ]
+    for args, kw, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            dense.check_inputs(*args, **kw)
+    before = dense.launches
+    with pytest.raises(ValueError):
+        dense.prefill_attention(*bad[0][0])
+    assert dense.launches == before
