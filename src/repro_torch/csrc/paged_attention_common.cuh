@@ -7,8 +7,9 @@
 // sequence's keys in tiles of TILE tokens, each token found through the
 // block table (page = table[t / page_size], slot = t % page_size), and keeps
 // a flash-style online softmax in f32: a running max and sum per row in
-// shared memory and an (R, hd) accumulator in registers. Nothing is carried
-// between blocks, so no second pass is needed.
+// shared memory and an (R, hd) accumulator in registers. A block writes its
+// rows' output, or, for the decode split over keys (flash-decoding), its
+// rows' partial states, which a second pass merges (decode_split.cuh).
 //
 // Per tile: (1) the K and V rows of the *next* tile are already in flight
 // into the other half of a double buffer (cp.async, 16 bytes per copy, no
@@ -167,8 +168,12 @@ __device__ __forceinline__ float2 bf2(uint32_t w) {
 // Attention for one block: queries q0 .. q0+nq-1 of one sequence, kv head
 // kvh. q and out point at that sequence's (Sq, H, hd) slab; table at its
 // block-table row. Query i is real when i < n_valid and sits at global
-// position q_start + i; it sees keys tpos <= its position and tpos < total.
-// NT threads; MAXR >= ceil(R / (NT / TILE)); MAXACC >= ceil(R * hdp/2 / NT).
+// position q_start + i; it sees keys k_lo <= tpos <= its position and
+// tpos < total. With part == nullptr the block writes the normalised bf16
+// output; otherwise the R rows' partial states, as split decode records
+// (decode_split.cuh: O[hdp] unnormalised, m, l; m = -inf and l = 0 for a
+// row that saw no key). NT threads; MAXR >= ceil(R / (NT / TILE));
+// MAXACC >= ceil(R * hdp/2 / NT).
 template <int NT, int MAXR, int MAXACC>
 __device__ __forceinline__ void attend(
     const __nv_bfloat16* __restrict__ q,
@@ -176,15 +181,23 @@ __device__ __forceinline__ void attend(
     const __nv_bfloat16* __restrict__ v_pages,
     const int* __restrict__ table, __nv_bfloat16* __restrict__ out,
     const Geometry& g, int kvh, int q0, int nq, int n_valid, int q_start,
-    int total, float* smem) {
+    int total, float* smem, int k_lo = 0, float* part = nullptr) {
   static_assert(NT % TILE == 0 && NT % 32 == 0, "block shape");
   constexpr int NG = NT / TILE;  // row groups in the score phase
   constexpr int NW = NT / 32;
   const int tid = threadIdx.x;
   const int G = g.G, hdp = g.hdp, npairs = g.hdp / 2;
   const int R = nq * G;
+  const int rec = hdp + 2;   // floats per partial record
 
   const int last_q = min(q0 + nq, n_valid) - 1;  // last real query of tile
+  if (last_q < q0 && part != nullptr) {
+    for (int r = tid; r < R; r += NT) {
+      part[r * rec + hdp] = -INFINITY;
+      part[r * rec + hdp + 1] = 0.0f;
+    }
+    return;
+  }
   if (last_q < q0) {
     // every query of the tile is padding (or the row is empty): zeros
     for (int idx = tid; idx < R * npairs; idx += NT) {
@@ -215,10 +228,10 @@ __device__ __forceinline__ void attend(
   __syncthreads();
 
   // first tile in flight before anything else
-  if (kv_end > 0) {
-    const int tn = min(TILE, kv_end);
-    load_tile<NT>(kv_s, k_pages, tab_s, g, kvh, 0, tn);
-    load_tile<NT>(kv_s + tile_elems, v_pages, tab_s, g, kvh, 0, tn);
+  if (kv_end > k_lo) {
+    const int tn = min(TILE, kv_end - k_lo);
+    load_tile<NT>(kv_s, k_pages, tab_s, g, kvh, k_lo, tn);
+    load_tile<NT>(kv_s + tile_elems, v_pages, tab_s, g, kvh, k_lo, tn);
     cp_async_commit();
   }
 
@@ -240,7 +253,7 @@ __device__ __forceinline__ void attend(
   for (int i = 0; i < MAXACC; ++i) acc[i] = make_float2(0.0f, 0.0f);
 
   int stage = 0;
-  for (int t0 = 0; t0 < kv_end; t0 += TILE, stage ^= 1) {
+  for (int t0 = k_lo; t0 < kv_end; t0 += TILE, stage ^= 1) {
     const int tn = min(TILE, kv_end - t0);
     const __nv_bfloat16* k_s = kv_s + (2 * stage) * tile_elems;
     const __nv_bfloat16* v_s = kv_s + (2 * stage + 1) * tile_elems;
@@ -409,6 +422,22 @@ __device__ __forceinline__ void attend(
   }
 
   __syncthreads();  // l_s written by other threads when no tile ran
+  if (part != nullptr) {
+#pragma unroll
+    for (int i = 0; i < MAXACC; ++i) {
+      const int idx = tid + i * NT;
+      if (idx < R * npairs) {
+        const int r = idx / npairs, dp = idx - r * npairs;
+        part[r * rec + 2 * dp] = acc[i].x;
+        part[r * rec + 2 * dp + 1] = acc[i].y;
+      }
+    }
+    for (int r = tid; r < R; r += NT) {
+      part[r * rec + hdp] = m_s[r];
+      part[r * rec + hdp + 1] = l_s[r];
+    }
+    return;
+  }
   // epilogue: normalise; rows with no visible key and padding queries -> 0
 #pragma unroll
   for (int i = 0; i < MAXACC; ++i) {

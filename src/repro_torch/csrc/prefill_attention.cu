@@ -14,26 +14,41 @@
 // buffer, or the k/v columns of a fused QKV activation): the kernel takes
 // each one's batch and token strides and reads only the rows it needs.
 //
+// Every route walks only the keys [lo, hi) its queries can see (key_range):
+// from the first key inside the first query's window to the last key the
+// last query can see (every key when the last query sees none).
+//
+// Chunk route (Sq * G > 16; bound on an H100 by bf16 tensor-core
+// operations: at serving chunks, hundreds of queries at hd 128, the two
+// products do more operations per K/V byte than the card's balance point).
 // One thread block per (sequence, kv head, tile of BQ queries): the tile's
 // BQ * G query rows attend together, so each K/V byte a block reads serves
-// all of them. The block walks only the keys its queries can see: from the
-// first key inside its first query's window to the last key its last query
-// can see. For hd 64 and 128 the products run on the tensor cores
+// all of them. For hd 64 and 128 the products run on the tensor cores
 // (mma.sync m16n8k16, 4 warps x 16 rows, Q fragments in registers, K/V by
 // ldmatrix from cp.async double-buffered tiles), with the fragment helpers
-// of paged_attention_mma.cuh; other head dims (any hd <= 256) and
-// unaligned views take a warp-per-row f32-FMA path.
+// of paged_attention_mma.cuh. Not yet: wgmma with TMA.
 //
-// Bound on an H100: at serving chunks (hundreds of queries, hd 128) the two
-// products do more operations per K/V byte than the card's balance point,
-// so bf16 tensor-core operations bound it; a decode step (Sq = 1) reads
-// each visible K/V row once and is bound by bytes. Not yet: wgmma with TMA,
-// and a split over keys for the Sq = 1, small-batch grid (B * KV blocks).
-#include "paged_attention_mma.cuh"
+// Decode route (Sq * G <= 16, hd 64 or 128, 16-byte aligned views: every
+// decode step of the dense-slot path; bound by bytes, each visible K/V row
+// read once at about 2 G flops per bf16 element). A block per (sequence,
+// kv head) would run B * KV blocks (16 at gemma3's B = 1) with one warp of
+// four busy. Instead the Sq * G rows form one m16 tile, the 4 warps split
+// the keys of each 64-key tile, and the grid (B, KV, n_split) splits
+// [lo, hi) into tile-aligned slices planned on the host; the blocks write
+// f32 partial states and combine_kernel merges them (decode_split.cuh, the
+// same walk and combine as the paged decode kernel, with strided
+// addressing and the finite mask). Its cp.async ring is RING = 2 tiles: on
+// an H100 SXM at 700 W gemma3's decode over 2048 keys ran ~4% faster with
+// two than with three (the slices are four tiles long).
+//
+// Other head dims (any hd <= 256) and unaligned views take a warp-per-row
+// f32-FMA path.
+#include "decode_split.cuh"
 
 namespace {
 
 constexpr float MASKED = -1e30f;  // the reference's finite mask value
+constexpr int RING = 2;           // depth of the decode route's cp.async ring
 
 // tensor-core path
 constexpr int MMA_WARPS = 4;
@@ -284,6 +299,48 @@ dense_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// Decode route: keys [lo + s * chunk, min(hi, lo + (s + 1) * chunk)) of
+// sequence b, kv head kvh, for its Sq * G <= 16 query rows.
+template <int HD>
+__global__ void __launch_bounds__(pa::split::NT)
+dense_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+                   Dense d, int lo, int hi, int n_split, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z;
+  const int k0 = lo + s * chunk, k1 = min(hi, k0 + chunk);
+  const pa::split::StridedRows kv{
+      k + (long long)b * d.k_sb + (long long)kvh * HD,
+      v + (long long)b * d.v_sb + (long long)kvh * HD, d.k_st, d.v_st};
+  const pa::split::CausalWindow vis{d.q_start, d.window, d.G};
+  const int R = d.Sq * d.G;
+  const size_t seq = (size_t)b * d.Sq * d.H * HD;
+  float* rec = part == nullptr
+                   ? nullptr
+                   : part + ((size_t)(b * d.KV + kvh) * n_split + s) * R *
+                                (HD + 2);
+  pa::split::attend<HD, RING>(q + seq, out + seq, rec, kv, vis, d.H, d.G,
+                              kvh, R, k0, k1, MASKED, d.sm_scale, d.softcap,
+                              smem);
+}
+
+template <int HD>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         void* out, void* part, const Dense& d, int lo, int hi,
+                         int n_split, int chunk, cudaStream_t stream) {
+  auto kernel = dense_split_kernel<HD>;
+  const size_t smem = pa::split::smem_bytes<HD, RING>();
+  cudaError_t err = pa::set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(d.B, d.KV, n_split), pa::split::NT, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)part, d, lo, hi,
+      n_split, chunk);
+  return cudaGetLastError();
+}
+
 // One warp per (sequence, query, head) row: each lane scores one key of a
 // 32-key step against the row (q in shared memory), the warp updates the
 // online softmax, and each lane accumulates its hd / 32 output dims.
@@ -364,13 +421,17 @@ bool aligned16(const void* p) {
 
 // q (B, Sq, H, hd) bf16, contiguous; k and v bf16 views whose (KV, hd)
 // rows are contiguous, key t of sequence b at element b * sb + t * st;
-// n_keys >= 1 keys; out (B, Sq, H, hd) bf16. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// n_keys >= 1 keys; out (B, Sq, H, hd) bf16. n_split > 0 takes the decode
+// route over keys [lo, hi) (key_range's), cut into n_split slices of
+// `chunk` keys; with n_split > 1, part is f32 scratch of
+// B * KV * n_split * Sq * H / KV records of hd + 2 floats. n_split == 0
+// takes the chunk route (or the FMA path). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int prefill_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int H, int KV, int hd, int n_keys, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, int q_start, int window, float softcap,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* part,
+    int B, int Sq, int H, int KV, int hd, int n_keys, long long k_sb,
+    long long k_st, long long v_sb, long long v_st, int q_start, int window,
+    float softcap, int n_split, int chunk, int lo, int hi, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > 16 || hd <= 0 || hd > FMA_DIMS * 32 || n_keys <= 0 ||
       q_start < 0 || window < 0)
@@ -394,6 +455,23 @@ extern "C" int prefill_attention_launch(
   const cudaStream_t s = (cudaStream_t)stream;
   const bool vec = aligned16(k) && aligned16(v) && k_sb % 8 == 0 &&
                    k_st % 8 == 0 && v_sb % 8 == 0 && v_st % 8 == 0;
+  if (n_split > 0) {
+    if (!(hd == 64 || hd == 128) || !vec || Sq * d.G > 16 || lo < 0 ||
+        hi > n_keys || lo >= hi || chunk <= 0 || n_split > 65535 ||
+        (long long)n_split * chunk < hi - lo ||
+        (n_split > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    void* p = n_split > 1 ? part : nullptr;
+    const cudaError_t err =
+        hd == 64 ? launch_split<64>(q, k, v, out, p, d, lo, hi, n_split,
+                                    chunk, s)
+                 : launch_split<128>(q, k, v, out, p, d, lo, hi, n_split,
+                                     chunk, s);
+    if (err != cudaSuccess || n_split == 1) return (int)err;
+    return (int)launch_combine((const float*)part, (__nv_bfloat16*)out, B,
+                               KV, n_split, /*R=*/Sq * d.G, d.G, H, Sq, hd,
+                               s);
+  }
   if ((hd == 64 || hd == 128) && vec) {
     const int BQ = min(MMA_ROWS / d.G, Sq);
     const size_t smem =

@@ -7,21 +7,26 @@ block-table pages; GQA grouped as (KV, G, hd); optional tanh softcap; mask
 ``tpos < length``; rows with length 0 give exact zeros.
 
 Bound on an H100: bytes — the live K/V pages, read once (about 2·G flops
-per bf16 element, far under the card's flops-per-byte balance). The kernel
-runs one block per (sequence, kv head): it walks only the sequence's
-``ceil(length / page)`` pages through its own block-table row, staged in
-shared memory, with 16-byte cp.async copies double-buffered against the
-math, so each K/V byte crosses the memory bus once; the online softmax
-stays in f32. For hd 64 and 128 the G query heads form one 16-row
-tensor-core tile and each 64-key tile is split over 4 warps whose softmax
-states merge at the end; other head dims use f32 FMAs. Splitting long
-contexts over several blocks (flash-decoding) to fill the card at small
-batch is later work.
+per bf16 element, far under the card's flops-per-byte balance). To fill
+the card at small batch the kernel splits each row's keys over blocks
+(flash-decoding): ``split_plan`` cuts the widest row the block table can
+hold (``max_pages * page``; the lengths stay on the device) into
+page-aligned slices, enough for about two blocks per SM, each at least
+four 64-key tiles. Block (sequence, kv head, slice) walks the slice's keys
+below the row's length through its staged block-table entries, with a
+three-tile ring of 16-byte cp.async copies (two tiles in flight against
+the math); for hd 64 and 128 the G query heads form one 16-row
+tensor-core tile and each 64-key tile is split over 4 warps, other head
+dims use f32 FMAs. With
+more than one slice the blocks write f32 partial softmax states to
+scratch and a second launch merges them into the bf16 output; a row of
+length 0 stays exact zeros.
 
 ``paged_attention`` launches the kernel for CUDA tensors (bf16 q and
 pages, int32 table and lengths) and raises on anything it does not take;
 ``plain`` is the torch version the CPU path and the checks use. ``launches``
-counts kernel launches.
+counts calls that launched the kernel (one a call, however many CUDA
+launches it takes).
 """
 from __future__ import annotations
 
@@ -29,10 +34,11 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, split
 from .ref import ref_paged_attention as plain
 
-__all__ = ["paged_attention", "plain", "check_inputs", "launches"]
+__all__ = ["paged_attention", "plain", "check_inputs", "split_plan",
+           "launches"]
 
 launches = 0
 _fn = None
@@ -44,11 +50,19 @@ def _launcher():
     global _fn
     if _fn is None:
         f = build.load("paged_attention").paged_attention_launch
-        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
+            [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
+
+
+def split_plan(B: int, KV: int, max_keys: int, page: int) -> tuple[int, int]:
+    """``(n_split, chunk)``: the keys ``[0, max_keys)`` of each of the
+    ``B * KV`` (sequence, kv head) pairs cut into slices of ``chunk`` keys,
+    a multiple of the page (and of the 64-key tile where the page divides
+    it)."""
+    return split.plan(B * KV, 0, max_keys, page * max(1, split.TILE // page))
 
 
 def check_inputs(q, k_pages, v_pages, block_table, lengths):
@@ -96,12 +110,19 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
     check_inputs(q, k_pages, v_pages, block_table, lengths)
     B, H, hd = q.shape
     _, page, KV, _ = k_pages.shape
+    maxp = block_table.shape[1]
+    n_split, chunk = split_plan(B, KV, maxp * page, page)
     out = torch.empty_like(q)
+    part = None
+    if n_split > 1:
+        part = torch.empty(B * H * n_split * split.record_floats(hd),
+                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _launcher()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KV, hd, page, block_table.shape[1], float(softcap),
+            None if part is None else part.data_ptr(),
+            B, H, KV, hd, page, maxp, float(softcap), n_split, chunk,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

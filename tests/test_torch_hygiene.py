@@ -84,7 +84,10 @@ def test_serve_run_leaves_jax_unloaded():
         "arch == 'gemma3-27b')\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok', eng.iterations)\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread, as the in-process port tests use
+    # (torch_parity.py): with every core busy with the other test workers,
+    # a default-width thread pool makes this ~10 s run take minutes
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -1,14 +1,31 @@
 """Each hand-written CUDA kernel of the port against its plain torch
 version, on the GPU: odd shapes the serving path does not reach (MQA,
 G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
-queries). Marked ``gpu``; without a CUDA device every test skips. Run on
-the card with
+queries), and the decode kernels' split over keys (rows ending on a slice
+boundary, all-empty rows). Marked
+``gpu``; without a CUDA device every test skips. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 """
 import numpy as np
 import pytest
 import torch
+
+
+def _assert_decode_close(out, ref):
+    """Within 2e-2 of the plain version, and within 1e-2 of its scale:
+    for each query token, the rms error over its (heads, dims) outputs at
+    most 1e-2 of the plain output's rms there (tokens whose plain output
+    is all zero are left to the exact-zero checks). With random inputs a
+    decode over thousands of keys has outputs of ~0.03, so only the
+    relative limit sees a dropped tile or slice of keys."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-2, rtol=0)
+    d = (out - ref).flatten(-2).square().mean(-1).sqrt()
+    r = ref.flatten(-2).square().mean(-1).sqrt()
+    live = r > 0
+    assert (d[live] <= 1e-2 * r[live]).all(), \
+        (d[live] / r[live]).max().item()
 
 
 def _decode_case(lens, H, KV, hd, page, P, seed):
@@ -64,9 +81,59 @@ def test_cuda_paged_attention_matches_plain(case):
     out = dec.paged_attention(q, kp, vp, bt, ln, softcap=cap)
     torch.cuda.synchronize()
     ref = dec.plain(q.float(), kp.float(), vp.float(), bt, ln, softcap=cap)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
-                               atol=2e-2, rtol=0)
+    _assert_decode_close(out, ref)
     assert (out[ln == 0] == 0).all()
+
+
+def _boundary_lengths(B, KV, maxp, page):
+    """B lengths: 255, 256, 257, then every slice boundary the decode plan
+    picks for this table, then one key past each, one key short of each,
+    and full rows, as far as B goes."""
+    from repro_torch.kernels import paged_attention as dec
+    from repro_torch.kernels import split
+    n, chunk = dec.split_plan(B, KV, maxp * page, page)
+    bounds = [a for a, _ in split.ranges(0, maxp * page, n, chunk)[1:]]
+    lens = [255, 256, 257] + bounds + [b + 1 for b in bounds] + \
+        [b - 1 for b in bounds] + [maxp * page] * B
+    return lens[:B]
+
+
+GPU_SPLIT = [  # (lens, maxp, H, KV, hd, page, softcap)
+    # qwen2-vl's decode shapes: 255-257 and every boundary of the B = 16
+    # plan (8 slices of 512 keys)
+    (_boundary_lengths(16, 2, 256, 16), 256, 12, 2, 128, 16, 0.0),
+    ([4096], 256, 12, 2, 128, 16, 0.0),           # B = 1: 16 slices
+    ([0, 0, 0], 256, 12, 2, 128, 16, 0.0),        # all rows empty
+    ([0, 300, 0, 1], 256, 8, 2, 64, 16, 0.0),     # hd 64
+    ([2000, 17], 128, 12, 2, 128, 16, 30.0),      # softcap
+    ([1000, 0, 513], 64, 8, 1, 72, 16, 0.0),      # FMA path, split
+    ([700, 256], 48, 16, 1, 256, 16, 0.0),        # FMA path, hd 256
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_SPLIT, ids=str)
+def test_cuda_paged_attention_split_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import paged_attention as dec
+    lens, maxp, H, KV, hd, page, cap = case
+    g = np.random.default_rng(len(lens) + maxp)
+    B, P = len(lens), len(lens) * maxp + 8
+    q = torch.from_numpy(g.standard_normal((B, H, hd))).float()
+    kp = torch.from_numpy(g.standard_normal((P, page, KV, hd))).float()
+    vp = torch.from_numpy(g.standard_normal((P, page, KV, hd))).float()
+    q, kp, vp = (t.cuda().to(torch.bfloat16) for t in (q, kp, vp))
+    bt = torch.from_numpy(g.permutation(P)[:B * maxp].reshape(B, maxp)
+                          .astype(np.int32)).cuda()
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    assert dec.split_plan(B, KV, maxp * page, page)[0] > 1
+    out = dec.paged_attention(q, kp, vp, bt, ln, softcap=cap)
+    torch.cuda.synchronize()
+    ref = dec.plain(q.float(), kp.float(), vp.float(), bt, ln, softcap=cap)
+    _assert_decode_close(out, ref)
+    assert (out[ln == 0] == 0).all()
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.gpu
@@ -106,6 +173,18 @@ GPU_DENSE = [  # (B, Sq, n_keys, Smax, H, KV, hd, q_start, window, softcap)
     (1, 3, 50, 64, 8, 2, 64, 2000, 40, 0.0),         # mixed: last rows see none
 ]
 
+GPU_DENSE_DECODE = [  # the decode route: Sq * G <= 16, split over keys
+    (1, 1, 2048, 2048, 32, 16, 128, 2047, 0, 0.0),     # gemma3 decode
+    (1, 1, 2048, 2048, 32, 16, 128, 2047, 1024, 0.0),  # window
+    (3, 1, 2048, 2048, 32, 16, 128, 2047, 0, 0.0),     # B = 3
+    (3, 1, 2048, 2048, 32, 16, 128, 2047, 1024, 0.0),  # B = 3, window
+    (1, 1, 2048, 2048, 32, 16, 128, 2100, 1024, 0.0),  # past the buffer
+    (1, 1, 2048, 2048, 32, 16, 128, 3500, 1024, 0.0),  # sees no key
+    (1, 1, 1500, 2048, 32, 16, 128, 1499, 0, 50.0),    # softcap
+    (2, 1, 1000, 1024, 8, 2, 64, 999, 0, 0.0),         # hd 64
+    (2, 4, 900, 1024, 8, 2, 64, 896, 700, 0.0),        # Sq * G = 16
+]
+
 
 def _dense_case(B, Sq, n_keys, Smax, H, KV, hd, seed):
     g = np.random.default_rng(seed)
@@ -132,6 +211,50 @@ def test_cuda_prefill_attention_matches_plain(case):
                       window=window, softcap=cap)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GPU_DENSE_DECODE, ids=str)
+def test_cuda_prefill_attention_decode_route_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import prefill_attention as dense
+    B, Sq, n, Smax, H, KV, hd, q_start, window, cap = case
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _dense_case(B, Sq, n, Smax, H, KV, hd,
+                                    seed=hd + n + B))
+    k, v = k[:, :n], v[:, :n]          # views of the slot buffers
+    assert dense.decode_route(q, k, v)
+    lo, hi = dense.key_range(n, Sq, q_start, window)
+    assert dense.split_plan(B, KV, lo, hi)[0] > 1
+    out = dense.prefill_attention(q, k, v, q_start=q_start, window=window,
+                                  softcap=cap)
+    torch.cuda.synchronize()
+    ref = dense.plain(q.float(), k.float(), v.float(), q_start=q_start,
+                      window=window, softcap=cap)
+    _assert_decode_close(out, ref)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_attention_decode_reads_a_fused_qkv_view():
+    """One decode query over k and v as the columns of a fused
+    (B, S, H + 2KV, hd) activation: the decode route on strided views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import prefill_attention as dense
+    B, S, H, KV, hd = 2, 1100, 8, 2, 128
+    g = np.random.default_rng(6)
+    qkv = torch.from_numpy(g.standard_normal(
+        (B, S, H + 2 * KV, hd)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = qkv[:, -1:, :H].contiguous()
+    k, v = qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert dense.decode_route(q, k, v)
+    for window in (0, 512):
+        out = dense.prefill_attention(q, k, v, q_start=S - 1, window=window)
+        torch.cuda.synchronize()
+        ref = dense.plain(q.float(), k.float(), v.float(), q_start=S - 1,
+                          window=window)
+        _assert_decode_close(out, ref)
 
 
 @pytest.mark.gpu
