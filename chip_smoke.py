@@ -6,19 +6,23 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written CUDA kernels from src/repro_torch/csrc (one
-     nvcc per source, all at once);
+     nvcc per source, all at once), with each kernel's registers and
+     spills and each library's count of warpgroup products (HGMMA) in its
+     SASS;
   3. the paged kernels against their plain torch versions at qwen2-vl's
      serving shapes (H=12, KV=2, hd=128, page 16), with kernel, plain,
      library (SDPA over the gathered context) and lower-bound times; the
      decode kernel at B=16 (contexts 0..4096), B=1 at 4096 and on lengths
-     at every boundary of its split over keys, each with its split plan.
-     Each output must be within TOL of the plain version's and, per query
-     token, within REL_RMS of its scale;
+     at every boundary of its split over keys, each with its split plan;
+     the prefill kernel with its tile plan, its heaviest block's bound and
+     the wrapper's host time a call. Each output must be within TOL of the
+     plain version's and, per query token, within REL_RMS of its scale;
   4. prefill_attention against its plain version at gemma3-27b's shapes
      (H=32, KV=16, hd=128; chunks, decodes at B=1 and B=3, sliding window
      1024, a decode past the end of the slot buffer, softcap), with the
      same times (SDPA with a boolean mask and GQA as the library call),
-     the same limits, and the split plan of each decode;
+     the same limits, the split plan of each decode and the tile plan of
+     each chunk;
   5. serve: full-width qwen2-vl-2b (28 layers, bf16, max_len 4096,
      16 slots, policy tcm) through repro_torch.launch.serve.build_stack —
      real profiler, estimator and classifier — then the engine on an MH
@@ -37,6 +41,13 @@ Phases, each printing its own lines:
      the dense cache, attention through the kernel against its plain
      version;
   9. a JSON line of every kernel's numbers, then the device JSON line last.
+
+``--profile`` adds, after each serve phase, where a serving step's time
+goes: a decode step's (qwen2-vl) or decode forward's (gemma3) host
+enqueue against enqueue-plus-device time with a profiler table, the same
+for a 512-token prefill chunk (qwen2-vl at context 3072, gemma3 at 1536)
+with the prefill kernel's share of the device time, and the decode
+kernel's time against context length.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 repository's sources are not beside this script, or when any check fails.
@@ -89,6 +100,22 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def print_hgmma(build):
+    """Count each library's warpgroup products (HGMMA) in its SASS, where
+    the toolkit's cuobjdump is present: the prefill kernels' products run
+    on wgmma."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("  cuobjdump not found: HGMMA not counted")
+        return
+    for name in build.SOURCES:
+        sass = subprocess.run([str(tool), "-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120)
+        n = sum("HGMMA" in line for line in sass.stdout.splitlines())
+        print(f"  {name}: {n} HGMMA instructions in its SASS", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +245,7 @@ def check_decode(torch, mod, gen, lengths, flush, label):
 
 
 def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
+    from repro_torch.kernels import tiles
     B = len(q_start)
     maxp = 4096 // PAGE
     n_pages = B * maxp + 64
@@ -254,9 +282,49 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
     bytes_ = (live * KV * HD * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
               + 2 * B * 4)
     flops = 4 * pairs * H * HD
-    return _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
-                f"prefill B={B} Sq={Sq} q_start={q_start} "
-                f"new_lens={new_lens}")
+    G = H // KV
+    bq, n_tiles = tiles.plan(Sq, G)
+    walks = []
+    for s, n in zip(q_start, new_lens):
+        for t in range(n_tiles):
+            last = min((t + 1) * bq, n) - 1     # last real query of the tile
+            if last >= t * bq:
+                walks.append((min(bq, Sq - t * bq) * G, s + last + 1))
+    blk = block_bound_ms(walks)
+    host = host_us(torch, lambda: mod.paged_prefill_attention(
+        q, kp, vp, bt, qs_t, nl_t))
+    row = _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
+               f"prefill B={B} Sq={Sq} q_start={q_start} "
+               f"new_lens={new_lens} [tiles: BQ={bq} x {n_tiles}, "
+               f"{n_tiles * B * KV} blocks]")
+    print(f"  heaviest block's bound {blk:.4f} ms (one SM's share of the "
+          f"peak); wrapper host time {host:.1f} us a call", flush=True)
+    return row
+
+
+SM_COUNT = 132                 # H100 SXM streaming multiprocessors
+
+
+def block_bound_ms(walks):
+    """The least time of the heaviest block of a prefill kernel: its
+    bf16 operations (rows x keys walked x 4 hd, both products) over one
+    SM's share of the card's peak. ``walks`` lists (rows, keys) per block.
+    A kernel that never splits a block's keys cannot go below it."""
+    rows, keys = max(walks, key=lambda w: w[0] * w[1])
+    return 4 * rows * keys * HD / (BF16_FLOPS_PER_S / SM_COUNT) * 1e3
+
+
+def host_us(torch, fn, reps=200):
+    """Host time of one call of ``fn`` (enqueue only; no sync inside)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops, label):
@@ -297,6 +365,7 @@ def check_dense(torch, mod, gen, B, Sq, n_keys, q_start, window, softcap,
     """prefill_attention at gemma3's shapes: q (B, Sq, 32, 128); K/V the
     first n_keys rows of a (B, 2048, 16, 128) slot buffer (a separate
     (B, Sq, 16, 128) pair for the cache-less case, n_keys == Sq)."""
+    from repro_torch.kernels import tiles
     S = max(n_keys, GMAX) if n_keys != Sq else n_keys
     q = torch.randn((B, Sq, GH, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -321,16 +390,32 @@ def check_dense(torch, mod, gen, B, Sq, n_keys, q_start, window, softcap,
         lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qt, kt, vt, mask),
                          flush=flush)
     bytes_, flops = dense_work(B, Sq, n_keys, q_start, window)
-    route = "chunk route"
+    host = host_us(torch, lambda: mod.prefill_attention(q, k, v, **kw))
+    blk = None
     if mod.decode_route(q, k, v):
         lo, hi = mod.key_range(n_keys, Sq, q_start, window)
         n, chunk = mod.split_plan(B, GKV, lo, hi)
         route = (f"decode route, split: keys [{lo}, {hi}) n_split={n} "
                  f"chunk={chunk} blocks={B * GKV * n}")
-    return _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
-                f"prefill_attention {label}: B={B} Sq={Sq} n_keys={n_keys} "
-                f"q_start={q_start} window={window} softcap={softcap} "
-                f"[{route}]")
+    else:
+        bq, n_tiles = tiles.plan(Sq, GH // GKV)
+        route = (f"chunk route, tiles: BQ={bq} x {n_tiles}, "
+                 f"{n_tiles * B * GKV} blocks")
+        walks = []
+        for t in range(n_tiles):
+            q0, q1 = t * bq, min(Sq, (t + 1) * bq)
+            lo, hi = mod.key_range(n_keys, q1 - q0, q_start + q0, window)
+            walks.append(((q1 - q0) * (GH // GKV), hi - lo))
+        blk = block_bound_ms(walks)
+    row = _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
+               f"prefill_attention {label}: B={B} Sq={Sq} n_keys={n_keys} "
+               f"q_start={q_start} window={window} softcap={softcap} "
+               f"[{route}]")
+    if blk is not None:
+        print(f"  heaviest block's bound {blk:.4f} ms (one SM's share of "
+              f"the peak)", flush=True)
+    print(f"  wrapper host time {host:.1f} us a call", flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +815,112 @@ def profile_phase(torch, executor):
         print(f"decode kernel B=1 context {n}: {ms:.4f} ms")
 
 
+def device_share(prof, names):
+    """(device us of the kernels whose name holds one of ``names``, all
+    device us) over a profile's self device times."""
+    from torch.autograd import DeviceType
+
+    def dev(e):
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+    # the device's own events (kernels, copies): an operator's row repeats
+    # the time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(dev(e) for e in events)
+    mine = sum(dev(e) for e in events if any(n in e.key for n in names))
+    return mine, total
+
+
+# the prefill kernels' names in the profiler's tables: the wgmma walks and
+# the mma.sync kernels they replaced, so that a tree before them reads too
+PAGED_PREFILL_KERNELS = ("paged_prefill_wgmma_kernel",
+                         "paged_prefill_mma_kernel")
+DENSE_CHUNK_KERNELS = ("dense_wgmma_kernel", "dense_mma_kernel")
+
+
+def timed_steps(torch, step, n):
+    """(host enqueue, enqueue plus device) seconds per call of ``step``."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        step()
+    host = (time.perf_counter() - t) / n
+    torch.cuda.synchronize()
+    return host, (time.perf_counter() - t) / n
+
+
+def profile_table(torch, step, label, kernels):
+    """A profiler table of three calls of ``step``, and the device share of
+    ``kernels``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    print(f"3 {label}:")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=12))
+    mine, total = device_share(prof, kernels)
+    print(f"{label}: device time {total / 3e3:.3f} ms a call, the "
+          f"attention kernel {mine / 3e3:.3f} ms ({mine / max(total, 1e-9):.1%}"
+          f" of it)", flush=True)
+
+
+def prefill_profile_phase(torch, executor):
+    """Where a qwen2-vl prefill step's time goes (``--profile`` only): one
+    512-token chunk at context 3072 (keys to 3584) through the executor's
+    own step, host enqueue against enqueue-plus-device time, and a
+    profiler table with the paged prefill kernel's share of the device
+    time. TTFT can follow the kernel only where the device, not the host,
+    sets the step's time."""
+    C, S = 3072, 512
+    alloc = executor.allocator
+    rid = "__profile_prefill"
+    alloc.allocate(rid, C + S + 8)
+    try:
+        bt = executor._block_table_rows(
+            [rid], executor._bucket_pages(-(-(C + S) // PAGE)))
+        gen = np.random.default_rng(3)
+        args = (gen.integers(1, executor.cfg.vocab_size, (1, S)).astype(
+                    np.int32),
+                (C + np.arange(S, dtype=np.int32))[None], bt,
+                np.full((1,), C, np.int32), np.full((1,), S, np.int32))
+
+        def step():
+            executor._step(*args)
+        host, total = timed_steps(torch, step, 10)
+        print(f"prefill step B=1 chunk {S} at context {C}: host enqueue "
+              f"{host * 1e3:.2f} ms, enqueue+device {total * 1e3:.2f} ms")
+        profile_table(torch, step, "prefill steps", PAGED_PREFILL_KERNELS)
+    finally:
+        alloc.free(rid)
+
+
+def gemma_prefill_profile_phase(torch, executor):
+    """The same for gemma3 (``--profile`` only): one request's 512-query
+    chunk forward at context 1536 over a slot cache (keys to 2048)."""
+    from repro_torch.models.params import tree_leaves
+    cache = executor.caches[0]
+    C, S = 1536, 512
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    toks = torch.randint(1, executor.cfg.vocab_size, (1, S),
+                         generator=gen).cuda()
+
+    def step():
+        cache["idx"].fill_(C)
+        executor._legacy_forward(toks, None, cache, C)
+    host, total = timed_steps(torch, step, 5)
+    print(f"gemma3 chunk forward {S} queries at context {C}: host enqueue "
+          f"{host * 1e3:.2f} ms, enqueue+device {total * 1e3:.2f} ms")
+    profile_table(torch, step, "gemma3 chunk forwards", DENSE_CHUNK_KERNELS)
+    for leaf in tree_leaves(cache, torch.is_tensor):
+        leaf.zero_()
+
+
 def gemma_profile_phase(torch, executor):
     """Where a gemma3 decode token's time goes (``--profile`` only): one
     request's decode forward at context 2000 over a slot cache, host
@@ -798,6 +989,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    print_hgmma(build)
 
     phase("kernels vs plain")
     from repro_torch.kernels import paged_attention as dec
@@ -845,6 +1037,7 @@ def main():
     if args.profile:
         phase("profile")
         profile_phase(torch, executor)
+        prefill_profile_phase(torch, executor)
     del executor          # free qwen2-vl before gemma3-27b's 57 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -856,6 +1049,7 @@ def main():
     if args.profile:
         phase("gemma3 profile")
         gemma_profile_phase(torch, g_executor)
+        gemma_prefill_profile_phase(torch, g_executor)
     del g_executor
     gc.collect()
     torch.cuda.empty_cache()

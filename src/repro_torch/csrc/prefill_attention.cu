@@ -21,12 +21,19 @@
 // Chunk route (Sq * G > 16; bound on an H100 by bf16 tensor-core
 // operations: at serving chunks, hundreds of queries at hd 128, the two
 // products do more operations per K/V byte than the card's balance point).
-// One thread block per (sequence, kv head, tile of BQ queries): the tile's
-// BQ * G query rows attend together, so each K/V byte a block reads serves
-// all of them. For hd 64 and 128 the products run on the tensor cores
-// (mma.sync m16n8k16, 4 warps x 16 rows, Q fragments in registers, K/V by
-// ldmatrix from cp.async double-buffered tiles), with the fragment helpers
-// of paged_attention_mma.cuh. Not yet: wgmma with TMA.
+// For hd 64 and 128 and 16-byte aligned views the walk is
+// prefill_wgmma.cuh's: a block owns up to 128 query rows of one
+// (sequence, kv head) (BQ = 128 / G queries times the G heads of the kv
+// head, so each K/V byte staged serves all of them), two consumer
+// warpgroups run wgmma, and a producer thread keeps a 3-tile ring of
+// 128-key tiles filled by TMA over the strided view (4-D tensor maps
+// (hd, KV, n_keys, B) with the view's strides; coordinates past n_keys
+// read as zeros). The tensor maps (Q, K, V) are encoded per call in the C
+// launcher: the pointers change per layer. cuTensorMapEncodeTiled is
+// looked up in libcuda (already loaded by the CUDA runtime) with
+// cudaGetDriverEntryPoint, so the library links nothing beyond the CUDA
+// runtime. The tiles late in the chunk (the longest walks) are launched
+// first.
 //
 // Decode route (Sq * G <= 16, hd 64 or 128, 16-byte aligned views: every
 // decode step of the dense-slot path; bound by bytes, each visible K/V row
@@ -44,15 +51,12 @@
 // Other head dims (any hd <= 256) and unaligned views take a warp-per-row
 // f32-FMA path.
 #include "decode_split.cuh"
+#include "prefill_wgmma.cuh"
 
 namespace {
 
 constexpr float MASKED = -1e30f;  // the reference's finite mask value
 constexpr int RING = 2;           // depth of the decode route's cp.async ring
-
-// tensor-core path
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_ROWS = 16 * MMA_WARPS;
 
 // f32-FMA path: one warp per (sequence, query, head) row
 constexpr int FMA_WARPS = 4;
@@ -79,224 +83,162 @@ __device__ __forceinline__ void key_range(const Dense& d, int q_first,
   }
 }
 
-__device__ __forceinline__ bool visible(const Dense& d, int tpos, int qpos) {
-  return tpos <= qpos && (d.window <= 0 || tpos > qpos - d.window);
-}
-
 __device__ __forceinline__ float scale_cap(const Dense& d, float s) {
   s *= d.sm_scale;
   if (d.softcap > 0.0f) s = tanhf(s / d.softcap) * d.softcap;
   return s;
 }
 
-// Start copying keys [t0, t0 + tn) of one (sequence, kv head) into a
-// (TILE, HD + 8) tile; rows past tn come out zero. ``base`` points at key 0
-// of that sequence and kv head.
-template <int HD, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ dst,
-                                          const __nv_bfloat16* __restrict__ base,
-                                          long long st, int t0, int tn) {
-  constexpr int NV = HD / 8;
-  constexpr int RS = HD + 8;
-  for (int idx = threadIdx.x; idx < pa::TILE * NV; idx += NT) {
-    const int t = idx / NV, c = idx - t * NV;
-    const bool ok = t < tn;
-    const __nv_bfloat16* src = ok ? base + (long long)(t0 + t) * st + c * 8
-                                  : base;
-    pa::cp_async16(dst + t * RS + c * 8, src, ok);
+// Q, K and V by TMA from one producer thread: Q as one (64, G, BQ) box
+// per 64-dim half (rows r = qi * G + gi land 128 bytes apart), K and V as
+// (64, 1, KN) boxes of KN keys per half.
+struct DenseMaps {
+  CUtensorMap q, k, v;
+};
+
+template <int HD>
+struct DenseSrc {
+  static constexpr int LOADERS = 1;
+  static constexpr bool GENERIC_WRITES = false;
+  static constexpr bool FINITE_MASK = true;
+  const DenseMaps* maps;   // the kernel's parameter (param space)
+  __nv_bfloat16* out;
+  int H, G, Sq, b, kvh, q0, bq;
+  int q_first, q_last, window;   // global positions of the block's queries
+  float sm_scale, softcap;
+  int R, k0, n_tiles, k_end;
+
+  __device__ void load_q(uint32_t dst, int q_half, int, uint32_t bar,
+                         int) const {
+    pa::wg::mbar_expect_tx(bar, HD / 64 * pa::wg::ROW_BYTES * G * bq);
+    for (int h = 0; h < HD / 64; ++h)
+      pa::wg::tma_load_4d(dst + h * q_half, &maps->q, bar, h * 64, kvh * G,
+                          q0, b);
   }
+  __device__ void load_kv(int t0, uint32_t k_dst, uint32_t v_dst,
+                          uint32_t bar, int) const {
+    constexpr int HALF = pa::wg::KN * pa::wg::ROW_BYTES;
+    pa::wg::mbar_expect_tx(bar, 2 * HD / 64 * HALF);
+    for (int h = 0; h < HD / 64; ++h) {
+      pa::wg::tma_load_4d(k_dst + h * HALF, &maps->k, bar, h * 64, kvh, t0, b);
+      pa::wg::tma_load_4d(v_dst + h * HALF, &maps->v, bar, h * 64, kvh, t0, b);
+    }
+  }
+  __device__ void finish(int) const {}
+  __device__ bool row_ok(int) const { return true; }
+  __device__ int qpos(int r) const { return q_first + r / G; }
+  __device__ bool sees(int tpos, int qpos) const {
+    return tpos <= qpos && (window <= 0 || tpos > qpos - window);
+  }
+  __device__ bool tile_clear(int t0, int n) const {
+    return t0 + n <= k_end && t0 + n - 1 <= q_first &&
+           (window <= 0 || t0 > q_last - window);
+  }
+  __device__ __nv_bfloat16* out_row(int r) const {
+    return out + (((size_t)b * Sq + q0 + r / G) * H + kvh * G + r % G) * HD;
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(pa::wg::THREADS, 1)
+dense_wgmma_kernel(const __grid_constant__ DenseMaps maps,
+                   __nv_bfloat16* __restrict__ out, const Dense d, int BQ,
+                   int n_qt) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  int qt, b, kvh;
+  pa::wg::block_coords(n_qt, d.B, d.KV, qt, b, kvh);
+  DenseSrc<HD> src;
+  src.maps = &maps;
+  src.out = out;
+  src.H = d.H;
+  src.G = d.G;
+  src.Sq = d.Sq;
+  src.b = b;
+  src.kvh = kvh;
+  src.q0 = qt * BQ;
+  src.bq = BQ;
+  const int nq = min(BQ, d.Sq - src.q0);
+  src.q_first = d.q_start + src.q0;
+  src.q_last = src.q_first + nq - 1;
+  src.window = d.window;
+  src.sm_scale = d.sm_scale;
+  src.softcap = d.softcap;
+  int lo, hi;
+  key_range(d, src.q0, src.q0 + nq - 1, lo, hi);
+  src.R = nq * d.G;
+  src.k0 = lo;
+  src.n_tiles = (hi - lo + pa::wg::KN - 1) / pa::wg::KN;
+  src.k_end = hi;
+  pa::wg::attend<HD>(src, pa::wg::align1024(smem_raw));
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the runtime loaded.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map (dims innermost first, byte strides of dims 1..3), box
+// `box`, 128-byte swizzle, zeros out of bounds.
+bool encode4(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+             const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-dense_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, Dense d, int BQ) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int NT = MMA_WARPS * 32;
-  constexpr int KS = HD / 16;        // k-steps of Q K^T
-  constexpr int NS = pa::TILE / 8;   // n-tiles of S (keys)
-  constexpr int NO = HD / 8;         // n-tiles of O (dims)
-  constexpr int RS = HD + 8;         // shared-memory row stride, bf16
-  constexpr int TILE_ELEMS = pa::TILE * RS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y, kvh = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const int nq = min(BQ, d.Sq - q0);
-  const int G = d.G;
-  const int R = nq * G;
-
-  int lo, hi;
-  key_range(d, q0, q0 + nq - 1, lo, hi);
-  const __nv_bfloat16* kb = k + (long long)b * d.k_sb + (long long)kvh * HD;
-  const __nv_bfloat16* vb = v + (long long)b * d.v_sb + (long long)kvh * HD;
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  {
-    const int tn = min(pa::TILE, hi - lo);
-    load_tile<HD, NT>(kv_s, kb, d.k_st, lo, tn);
-    load_tile<HD, NT>(kv_s + TILE_ELEMS, vb, d.v_st, lo, tn);
-    pa::cp_async_commit();
-  }
-
-  // this thread's two rows (gq and gq + 8 of the warp's 16)
-  int row_q[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + gq + 8 * h;
-    row_ok[h] = r < R;
-    row_q[h] = d.q_start + q0 + r / G;
-  }
-
-  // Q fragments, kept in registers for the whole key walk
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + gq + 8 * h;
-    const int qi = r / G, gi = r - qi * G;
-    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        q + (((long long)b * d.Sq + q0 + qi) * d.H + kvh * G + gi) * HD);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      qa[kk][h] = row_ok[h] ? __ldg(qrow + kk * 8 + t4) : 0u;
-      qa[kk][2 + h] = row_ok[h] ? __ldg(qrow + kk * 8 + 4 + t4) : 0u;
-    }
-  }
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m_row[2] = {-INFINITY, -INFINITY};
-  float l_row[2] = {0.0f, 0.0f};  // this thread's partial row sums
-
-  int stage = 0;
-  for (int t0 = lo; t0 < hi; t0 += pa::TILE, stage ^= 1) {
-    const __nv_bfloat16* k_s = kv_s + (2 * stage) * TILE_ELEMS;
-    const __nv_bfloat16* v_s = kv_s + (2 * stage + 1) * TILE_ELEMS;
-    if (t0 + pa::TILE < hi) {
-      // next tile into the other stage; its last readers finished before
-      // the closing barrier of the previous iteration
-      const int tn2 = min(pa::TILE, hi - t0 - pa::TILE);
-      __nv_bfloat16* k2 = kv_s + (2 * (stage ^ 1)) * TILE_ELEMS;
-      load_tile<HD, NT>(k2, kb, d.k_st, t0 + pa::TILE, tn2);
-      load_tile<HD, NT>(k2 + TILE_ELEMS, vb, d.v_st, t0 + pa::TILE, tn2);
-      pa::cp_async_commit();
-      pa::cp_async_wait<1>();
-    } else {
-      pa::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        uint32_t bf[4];
-        const int key = j * 8 + (lane & 7) + ((lane >> 4) << 3);
-        const int dim = kk * 16 + ((lane >> 3) & 1) * 8;
-        pa::ldmatrix_x4(bf, k_s + key * RS + dim);
-        pa::mma_bf16(s[j], qa[kk], bf[0], bf[1]);
-        pa::mma_bf16(s[j + 1], qa[kk], bf[2], bf[3]);
-      }
-    }
-
-    // scale, softcap, mask; online softmax per row. Keys past the walk and
-    // rows past the tile are -inf (they weigh nothing); keys a row may not
-    // see are the reference's finite -1e30: a row's first visible key
-    // rescales anything they added by exp(-1e30 - m) = 0
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int tpos = t0 + j * 8 + 2 * t4 + (e & 1);
-        float x = scale_cap(d, s[j][e]);
-        if (!row_ok[h] || tpos >= hi)
-          x = -INFINITY;
-        else if (!visible(d, tpos, row_q[h]))
-          x = MASKED;
-        s[j][e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_row[h], mx[h]);
-      alpha[h] = m_new == -INFINITY ? 1.0f : expf(m_row[h] - m_new);
-      m_row[h] = m_new;
-    }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float p = m_row[h] == -INFINITY ? 0.0f
-                                              : expf(s[j][e] - m_row[h]);
-        s[j][e] = p;
-        sum[h] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_row[h] = l_row[h] * alpha[h] + sum[h];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: S fragments of key tiles 2kk, 2kk+1 form P's A fragment
-#pragma unroll
-    for (int kk = 0; kk < pa::TILE / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pa::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pa::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pa::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pa::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bf[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int dim = n * 8 + (lane >> 4) * 8;
-        pa::ldmatrix_x4_trans(bf, v_s + key * RS + dim);
-        pa::mma_bf16(o[n], pf, bf[0], bf[1]);
-        pa::mma_bf16(o[n + 1], pf, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: full row sums across the quad; normalise; write bf16
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 1);
-    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 2);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + gq + 8 * h;
-    if (r >= R) continue;
-    const int qi = r / G, gi = r - qi * G;
-    const float inv = l_row[h] > 0.0f ? 1.0f / l_row[h] : 0.0f;
-    __nv_bfloat16* orow =
-        out + (((long long)b * d.Sq + q0 + qi) * d.H + kvh * G + gi) * HD;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      pa::store_pair(orow, n * 8 + 2 * t4, HD, o[n][2 * h] * inv,
-                     o[n][2 * h + 1] * inv);
-  }
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, const Dense& d, int BQ, int n_qt,
+                         cudaStream_t stream) {
+  DenseMaps maps;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  // a batch stride of one sequence is never stepped: give it a legal value
+  const long long k_sb = d.B > 1 ? d.k_sb : (long long)d.n_keys * d.k_st;
+  const long long v_sb = d.B > 1 ? d.v_sb : (long long)d.n_keys * d.v_st;
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)HD, (cuuint64_t)d.KV,
+                                 (cuuint64_t)d.n_keys, (cuuint64_t)d.B};
+  const cuuint32_t kv_box[4] = {64, 1, pa::wg::KN, 1};
+  const cuuint64_t q_dims[4] = {(cuuint64_t)HD, (cuuint64_t)d.H,
+                                (cuuint64_t)d.Sq, (cuuint64_t)d.B};
+  const cuuint64_t q_strides[3] = {HD * e, (cuuint64_t)d.H * HD * e,
+                                   (cuuint64_t)d.Sq * d.H * HD * e};
+  const cuuint32_t q_box[4] = {64, (cuuint32_t)d.G, (cuuint32_t)BQ, 1};
+  const cuuint64_t k_strides[3] = {HD * e, (cuuint64_t)d.k_st * e,
+                                   (cuuint64_t)k_sb * e};
+  const cuuint64_t v_strides[3] = {HD * e, (cuuint64_t)d.v_st * e,
+                                   (cuuint64_t)v_sb * e};
+  if (!encode4(&maps.q, q, q_dims, q_strides, q_box) ||
+      !encode4(&maps.k, k, kv_dims, k_strides, kv_box) ||
+      !encode4(&maps.v, v, kv_dims, v_strides, kv_box))
+    return cudaErrorInvalidValue;
+  auto kernel = dense_wgmma_kernel<HD>;
+  const size_t smem = pa::wg::Smem<HD>::bytes();
+  cudaError_t err = pa::set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)((long long)n_qt * d.B * d.KV),
+           pa::wg::THREADS, smem, stream>>>(
+      maps, (__nv_bfloat16*)out, d, BQ, n_qt);
+  return cudaGetLastError();
 }
 
 // Decode route: keys [lo + s * chunk, min(hi, lo + (s + 1) * chunk)) of
@@ -425,13 +367,16 @@ bool aligned16(const void* p) {
 // route over keys [lo, hi) (key_range's), cut into n_split slices of
 // `chunk` keys; with n_split > 1, part is f32 scratch of
 // B * KV * n_split * Sq * H / KV records of hd + 2 floats. n_split == 0
-// takes the chunk route (or the FMA path). Launches on `stream` and returns
+// takes the chunk route (or the FMA path); BQ and n_qt are the chunk
+// route's tile plan (kernels/tiles.py): BQ queries a block, BQ * G <= 128
+// rows, n_qt tiles covering Sq. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int prefill_attention_launch(
     const void* q, const void* k, const void* v, void* out, void* part,
     int B, int Sq, int H, int KV, int hd, int n_keys, long long k_sb,
     long long k_st, long long v_sb, long long v_st, int q_start, int window,
-    float softcap, int n_split, int chunk, int lo, int hi, void* stream) {
+    float softcap, int n_split, int chunk, int lo, int hi, int BQ, int n_qt,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > 16 || hd <= 0 || hd > FMA_DIMS * 32 || n_keys <= 0 ||
       q_start < 0 || window < 0)
@@ -472,18 +417,12 @@ extern "C" int prefill_attention_launch(
                                KV, n_split, /*R=*/Sq * d.G, d.G, H, Sq, hd,
                                s);
   }
-  if ((hd == 64 || hd == 128) && vec) {
-    const int BQ = min(MMA_ROWS / d.G, Sq);
-    const size_t smem =
-        (size_t)4 * pa::TILE * (hd + 8) * sizeof(__nv_bfloat16);
-    auto kernel = hd == 64 ? dense_mma_kernel<64> : dense_mma_kernel<128>;
-    cudaError_t err = pa::set_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((Sq + BQ - 1) / BQ, B, KV);
-    kernel<<<grid, MMA_WARPS * 32, smem, s>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, d, BQ);
-    return (int)cudaGetLastError();
+  if ((hd == 64 || hd == 128) && vec && aligned16(q)) {
+    if (!pa::wg::plan_ok(Sq, d.G, BQ, n_qt) ||
+        (long long)n_qt * B * KV > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    const auto f = hd == 64 ? launch_wgmma<64> : launch_wgmma<128>;
+    return (int)f(q, k, v, out, d, BQ, n_qt, s);
   }
   const long long rows = (long long)B * Sq * H;
   const unsigned blocks = (unsigned)((rows + FMA_WARPS - 1) / FMA_WARPS);

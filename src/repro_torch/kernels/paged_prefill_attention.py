@@ -11,14 +11,15 @@ padding rows are exact zeros.
 
 Bound on an H100: at the serving shapes (hd 128, chunks of hundreds of
 queries) the two products do more operations per K/V byte than the card's
-balance point, so the bound is bf16 tensor-core operations. The kernel runs
-one block per (sequence, kv head, tile of BQ queries): the tile's BQ·G
-query rows attend together, the block walks the keys through its own
-staged block-table row and stops at the last key the tile's last real
-query can see (padding tiles read nothing), with the online softmax in
-f32. For hd 64 and 128 the products run on the tensor cores (mma.sync,
-4 warps x 16 rows, Q fragments held in registers); other head dims use
-f32 FMAs. wgmma with TMA is the next step for speed.
+balance point, so the bound is bf16 tensor-core operations. For hd 64 and
+128 the kernel (``csrc/prefill_wgmma.cuh``) runs one block per (sequence,
+kv head, tile of BQ queries, ``tiles.plan``): the tile's BQ·G <= 128 query
+rows attend together on wgmma, two consumer warpgroups of 64 rows, while
+a producer warpgroup copies K/V tiles of 128 keys through the sequence's
+block-table row (cp.async into a ring, tracked by mbarriers). A
+block stops at the last key its last real query can see (padding tiles
+read nothing), and the tiles late in a chunk start first. Other head dims
+take an f32-FMA path.
 
 ``paged_prefill_attention`` launches the kernel for CUDA tensors (bf16 q
 and pages, int32 vectors) and raises on anything it does not take;
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, tiles
 from .ref import ref_paged_prefill_attention as plain
 
 __all__ = ["paged_prefill_attention", "plain", "check_inputs", "launches"]
@@ -46,7 +47,7 @@ def _launcher():
     if _fn is None:
         f = build.load("paged_prefill_attention")\
             .paged_prefill_attention_launch
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
             [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
@@ -99,13 +100,15 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_start,
     check_inputs(q, k_pages, v_pages, block_table, q_start, new_lens)
     B, Sq, H, hd = q.shape
     _, page, KV, _ = k_pages.shape
+    bq, n_tiles = tiles.plan(Sq, H // KV)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _launcher()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), q_start.data_ptr(), new_lens.data_ptr(),
             out.data_ptr(), B, Sq, H, KV, hd, page, block_table.shape[1],
-            float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+            bq, n_tiles, float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("paged_prefill_attention kernel launch failed: "
                            f"CUDA error {rc}")

@@ -22,10 +22,13 @@ last query sees none).
 
 - Chunk route (``Sq·G > 16``): bound by bf16 tensor-core operations (a
   chunk of hundreds of queries at hd 128 does more operations per K/V
-  byte than the card's balance point). One block per (sequence, kv head,
-  tile of queries), whose BQ·G rows share every K/V tile it reads;
-  mma.sync with cp.async double-buffered tiles. wgmma with TMA is later
-  work.
+  byte than the card's balance point). For hd 64 and 128 and 16-byte
+  aligned views (``csrc/prefill_wgmma.cuh``): one block per (sequence, kv
+  head, tile of BQ queries, ``tiles.plan``), whose BQ·G <= 128 rows share
+  every K/V tile it reads, on wgmma (two consumer warpgroups of 64 rows);
+  a producer thread keeps a ring of 128-key K/V tiles filled by TMA over
+  the strided view, through tensor maps the C launcher encodes per call.
+  The tiles late in the chunk (the longest walks) start first.
 - Decode route (``Sq·G <= 16``, hd 64 or 128, 16-byte aligned views):
   bound by bytes, each visible K/V row read once. The Sq·G rows form one
   16-row tensor-core tile, the 4 warps split each 64-key tile, and the
@@ -48,7 +51,7 @@ import ctypes
 
 import torch
 
-from . import build, split
+from . import build, split, tiles
 from .ref import ref_prefill_attention as plain
 
 __all__ = ["prefill_attention", "plain", "check_inputs", "key_range",
@@ -66,7 +69,7 @@ def _launcher():
         f = build.load("prefill_attention").prefill_attention_launch
         f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
             [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2 + \
-            [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fn = f
     return _fn
@@ -149,6 +152,7 @@ def prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
     q_start, window = int(q_start), int(window)
     out = torch.empty_like(q)
     n_split = chunk = lo = hi = 0   # 0 slices: the chunk (or FMA) route
+    bq, n_tiles = tiles.plan(Sq, H // KV)
     part = None
     if decode_route(q, k, v):
         lo, hi = key_range(n_keys, Sq, q_start, window)
@@ -163,7 +167,8 @@ def prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
             None if part is None else part.data_ptr(),
             B, Sq, H, KV, hd, n_keys, k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), q_start, window, float(softcap), n_split, chunk,
-            lo, hi, torch.cuda.current_stream(q.device).cuda_stream)
+            lo, hi, bq, n_tiles,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("prefill_attention kernel launch failed: CUDA "
                            f"error {rc}")

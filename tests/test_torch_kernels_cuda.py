@@ -1,8 +1,9 @@
 """Each hand-written CUDA kernel of the port against its plain torch
 version, on the GPU: odd shapes the serving path does not reach (MQA,
 G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
-queries), and the decode kernels' split over keys (rows ending on a slice
-boundary, all-empty rows). Marked
+queries), the decode kernels' split over keys (rows ending on a slice
+boundary, all-empty rows), and the prefill kernels at the serving widths
+(qwen2-vl's paged chunks, gemma3's dense chunks). Marked
 ``gpu``; without a CUDA device every test skips. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
@@ -12,12 +13,12 @@ import pytest
 import torch
 
 
-def _assert_decode_close(out, ref):
+def _assert_close(out, ref):
     """Within 2e-2 of the plain version, and within 1e-2 of its scale:
     for each query token, the rms error over its (heads, dims) outputs at
     most 1e-2 of the plain output's rms there (tokens whose plain output
-    is all zero are left to the exact-zero checks). With random inputs a
-    decode over thousands of keys has outputs of ~0.03, so only the
+    is all zero are left to the exact-zero checks). With random inputs an
+    attention over thousands of keys has outputs of ~0.03, so only the
     relative limit sees a dropped tile or slice of keys."""
     out, ref = out.float().cpu(), ref.float().cpu()
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-2, rtol=0)
@@ -64,6 +65,11 @@ GPU_PREFILL = [  # (q_start, new_lens, Sq, H, KV, hd, page, P, softcap)
     ([5, 0], [33, 40], 40, 4, 2, 64, 4, 64, 50.0),
     ([3, 60], [21, 9], 24, 8, 1, 72, 8, 32, 0.0),
     ([0, 31], [70, 64], 96, 16, 1, 256, 16, 64, 0.0),
+    # qwen2-vl's serving widths: a 512-token chunk at contexts to 4096
+    ([0, 1024, 3584, 0], [512, 300, 512, 0], 512, 12, 2, 128, 16, 1024,
+     0.0),
+    ([13, 0], [7, 5], 8, 12, 2, 128, 16, 16, 0.0),   # Sq * G < 64 rows
+    ([40, 3], [100, 61], 100, 16, 1, 64, 16, 32, 0.0),  # G = 16, mid-page
 ]
 
 
@@ -81,7 +87,7 @@ def test_cuda_paged_attention_matches_plain(case):
     out = dec.paged_attention(q, kp, vp, bt, ln, softcap=cap)
     torch.cuda.synchronize()
     ref = dec.plain(q.float(), kp.float(), vp.float(), bt, ln, softcap=cap)
-    _assert_decode_close(out, ref)
+    _assert_close(out, ref)
     assert (out[ln == 0] == 0).all()
 
 
@@ -131,7 +137,7 @@ def test_cuda_paged_attention_split_matches_plain(case):
     out = dec.paged_attention(q, kp, vp, bt, ln, softcap=cap)
     torch.cuda.synchronize()
     ref = dec.plain(q.float(), kp.float(), vp.float(), bt, ln, softcap=cap)
-    _assert_decode_close(out, ref)
+    _assert_close(out, ref)
     assert (out[ln == 0] == 0).all()
     assert torch.isfinite(out.float()).all()
 
@@ -152,8 +158,7 @@ def test_cuda_paged_prefill_matches_plain(case):
     torch.cuda.synchronize()
     ref = pre.plain(q.float(), kp.float(), vp.float(), bt, q_start,
                     new_lens, softcap=cap)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
-                               atol=2e-2, rtol=0)
+    _assert_close(out, ref)
     pad = torch.arange(Sq, device="cuda")[None, :] >= new_lens[:, None]
     assert (out[pad] == 0).all()
 
@@ -171,6 +176,11 @@ GPU_DENSE = [  # (B, Sq, n_keys, Smax, H, KV, hd, q_start, window, softcap)
     (2, 4, 200, 256, 8, 2, 128, 300, 0, 0.0),        # every key visible
     (1, 1, 2048, 2048, 32, 16, 128, 3500, 1024, 0.0),  # no key in window
     (1, 3, 50, 64, 8, 2, 64, 2000, 40, 0.0),         # mixed: last rows see none
+    # gemma3's serving widths: a 512-query chunk over 2048 keys
+    (1, 512, 2048, 2048, 32, 16, 128, 1536, 0, 0.0),
+    (1, 512, 2048, 2048, 32, 16, 128, 1536, 1024, 0.0),
+    (2, 100, 1100, 2048, 32, 16, 128, 1000, 0, 0.0),  # B = 2, n_keys < Smax
+    (1, 70, 70, 70, 6, 1, 128, 0, 0, 0.0),          # G = 6, two dead rows
 ]
 
 GPU_DENSE_DECODE = [  # the decode route: Sq * G <= 16, split over keys
@@ -209,8 +219,7 @@ def test_cuda_prefill_attention_matches_plain(case):
     torch.cuda.synchronize()
     ref = dense.plain(q.float(), k.float(), v.float(), q_start=q_start,
                       window=window, softcap=cap)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
-                               atol=2e-2, rtol=0)
+    _assert_close(out, ref)
 
 
 @pytest.mark.gpu
@@ -232,7 +241,7 @@ def test_cuda_prefill_attention_decode_route_matches_plain(case):
     torch.cuda.synchronize()
     ref = dense.plain(q.float(), k.float(), v.float(), q_start=q_start,
                       window=window, softcap=cap)
-    _assert_decode_close(out, ref)
+    _assert_close(out, ref)
 
 
 @pytest.mark.gpu
@@ -254,27 +263,32 @@ def test_cuda_prefill_attention_decode_reads_a_fused_qkv_view():
         torch.cuda.synchronize()
         ref = dense.plain(q.float(), k.float(), v.float(), q_start=S - 1,
                           window=window)
-        _assert_decode_close(out, ref)
+        _assert_close(out, ref)
 
 
 @pytest.mark.gpu
-def test_cuda_prefill_attention_reads_a_fused_qkv_view():
+@pytest.mark.parametrize("case", [  # (B, S, H, KV, hd, window)
+    (2, 70, 8, 2, 128, 32),
+    (1, 1536, 32, 16, 128, 1024),    # gemma3's cache-less chunk
+    (1, 300, 8, 2, 64, 0),
+], ids=str)
+def test_cuda_prefill_attention_reads_a_fused_qkv_view(case):
     """k and v as the columns of a fused (B, S, H + 2KV, hd) activation, as
     the cache-less forward passes them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import prefill_attention as dense
-    B, S, H, KV, hd = 2, 70, 8, 2, 128
+    B, S, H, KV, hd, window = case
     g = np.random.default_rng(5)
     qkv = torch.from_numpy(g.standard_normal(
         (B, S, H + 2 * KV, hd)).astype(np.float32)).cuda().to(torch.bfloat16)
     q = qkv[:, :, :H].contiguous()
     k, v = qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
-    out = dense.prefill_attention(q, k, v, q_start=0, window=32)
+    out = dense.prefill_attention(q, k, v, q_start=0, window=window)
     torch.cuda.synchronize()
-    ref = dense.plain(q.float(), k.float(), v.float(), q_start=0, window=32)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(),
-                               atol=2e-2, rtol=0)
+    ref = dense.plain(q.float(), k.float(), v.float(), q_start=0,
+                      window=window)
+    _assert_close(out, ref)
 
 
 @pytest.mark.gpu
