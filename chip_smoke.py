@@ -22,15 +22,19 @@ Phases, each printing its own lines:
      1024, a decode past the end of the slot buffer, softcap), with the
      same times (SDPA with a boolean mask and GQA as the library call),
      the same limits, the split plan of each decode and the tile plan of
-     each chunk;
+     each chunk; then the shapes the other families bring: the paged
+     kernels at phi3.5-moe's GQA group 4 (H=32, KV=8) and
+     prefill_attention at whisper-base's (H = KV = 8, hd 64) and jamba's
+     (H=64, KV=8) attention;
   5. serve: full-width qwen2-vl-2b (28 layers, bf16, max_len 4096,
      16 slots, policy tcm) through repro_torch.launch.serve.build_stack —
      real profiler, estimator and classifier — then the engine on an MH
      workload; every request must finish with tokens, both paged kernels
      must have launched, and JAX must not be loaded;
-  6. model check: the served weights, cut to two layers, give the same
-     logits with attention through the kernels as through their plain
-     torch versions, on a small input;
+  6. model check: the served weights cut to two layers, a 96-token
+     prefill and one decode step through the paged cache; each attention
+     call of that forward runs the kernel and its plain version on the
+     same inputs, which must agree;
   7. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
      4 dense slots, policy tcm), which build_stack's "real" mode puts on
      the dense-slot path (sliding window), on 8 MH requests; every request
@@ -40,7 +44,35 @@ Phases, each printing its own lines:
      (5 local, 1 global), a 1536-token prompt and one decode step through
      the dense cache, attention through the kernel against its plain
      version;
-  9. a JSON line of every kernel's numbers, then the device JSON line last.
+  9. phi3.5-moe serve: full width (d_model 4096, 16 experts top-2, GQA
+     32/8) at 24 of its 32 layers (the bf16 weights of all 32 fill the
+     card), random weights, through launch.serve.build_stack on the
+     batched paged path (max_len 4096), 12 MH requests at 2 req/s; both
+     paged kernels must have launched;
+ 10. phi3.5-moe model check: a 2-layer cut of the served weights, each
+     attention call of its paged forward against the kernel's plain
+     version, as in 6; then layer 0's moe_block over a 512-token chunk in bf16 on
+     the card against f32 on the CPU (routing identical, each token within
+     2e-2 of its rms), with the tokens dropped by capacity;
+ 11. jamba serve: full width (d_model 8192, GQA 64/8, 16 experts top-2,
+     d_ff 24576, Mamba DI 16384) at 5 of its 72 layers (the published
+     pattern's first five: Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention;
+     one whole 8-layer period does not fit the card), random weights,
+     through build_stack on the dense-slot path (6 MH requests),
+     prefill_attention launched; then the served layer 0's mamba_block, a
+     512-token prefill and 8 decode steps, in f32 on the card against f32
+     on the CPU (within 1e-4), and in bf16 on the card no further from
+     that reference than bf16 on the CPU is;
+ 12. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
+     width and depth, on the dense-slot path (8 and 6 MH requests);
+     whisper must launch prefill_attention, xlstm no kernel;
+ 13. launches per model, a JSON line of every kernel's numbers (launches
+     summed over every serve phase), then the device JSON line last.
+
+Each serve phase of 9-12 prints TTFT per class, tokens/s, peak device
+memory, its launches, and the host enqueue, enqueue-plus-device and
+device (profiler) time of a decode step (and, for phi3.5-moe, of a
+512-token prefill step).
 
 ``--profile`` adds, after each serve phase, where a serving step's time
 goes: a decode step's (qwen2-vl) or decode forward's (gemma3) host
@@ -151,9 +183,9 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _pool(torch, gen, n_pages):
-    kp = torch.randn((n_pages, PAGE, KV, HD), generator=gen, device="cuda")
-    vp = torch.randn((n_pages, PAGE, KV, HD), generator=gen, device="cuda")
+def _pool(torch, gen, n_pages, kv=KV, hd=HD):
+    kp = torch.randn((n_pages, PAGE, kv, hd), generator=gen, device="cuda")
+    vp = torch.randn((n_pages, PAGE, kv, hd), generator=gen, device="cuda")
     return kp.to(torch.bfloat16), vp.to(torch.bfloat16)
 
 
@@ -207,14 +239,16 @@ def boundary_lengths(mod, B):
             [T] * B)[:B]
 
 
-def check_decode(torch, mod, gen, lengths, flush, label):
+def check_decode(torch, mod, gen, lengths, flush, label,
+                 shape=(H, KV, HD)):
     B = len(lengths)
     maxp = 4096 // PAGE
     n_pages = B * maxp + 64
-    kp, vp = _pool(torch, gen, n_pages)
+    h, kv, hd = shape
+    kp, vp = _pool(torch, gen, n_pages, kv, hd)
     bt = _tables(torch, gen, B, maxp, n_pages)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, H, HD), generator=gen, device="cuda").to(
+    q = torch.randn((B, h, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
     out = mod.paged_attention(q, kp, vp, bt, ln)
     torch.cuda.synchronize()
@@ -224,8 +258,8 @@ def check_decode(torch, mod, gen, lengths, flush, label):
         fail("decode: length-0 rows are not exact zeros")
     err, rel = compare(out, ref, f"decode {label}")
     T = maxp * PAGE
-    k_ctx = kp[bt.long()].reshape(B, T, KV, HD).transpose(1, 2)
-    v_ctx = vp[bt.long()].reshape(B, T, KV, HD).transpose(1, 2)
+    k_ctx = kp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
+    v_ctx = vp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
     mask = (torch.arange(T, device="cuda")[None, :] <
             ln.long()[:, None])[:, None, None, :]
     qs = q[:, :, None, :]
@@ -235,25 +269,27 @@ def check_decode(torch, mod, gen, lengths, flush, label):
     lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qs, k_ctx, v_ctx, mask),
                      flush=flush)
     live = sum(lengths)
-    bytes_ = (live * KV * HD * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
+    bytes_ = (live * kv * hd * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
               + B * 4)
-    flops = 4 * live * H * HD
-    n, chunk = mod.split_plan(B, KV, maxp * PAGE, PAGE)
+    flops = 4 * live * h * hd
+    n, chunk = mod.split_plan(B, kv, maxp * PAGE, PAGE)
     return _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
                 f"decode {label}, B={B} contexts<= {max(lengths)} "
-                f"[split: n_split={n} chunk={chunk} blocks={B * KV * n}]")
+                f"[split: n_split={n} chunk={chunk} blocks={B * kv * n}]")
 
 
-def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
+def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush,
+                  shape=(H, KV, HD)):
     from repro_torch.kernels import tiles
     B = len(q_start)
     maxp = 4096 // PAGE
     n_pages = B * maxp + 64
-    kp, vp = _pool(torch, gen, n_pages)
+    h, kv, hd = shape
+    kp, vp = _pool(torch, gen, n_pages, kv, hd)
     bt = _tables(torch, gen, B, maxp, n_pages)
     qs_t = torch.tensor(q_start, dtype=torch.int32, device="cuda")
     nl_t = torch.tensor(new_lens, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, Sq, H, HD), generator=gen, device="cuda").to(
+    q = torch.randn((B, Sq, h, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
     out = mod.paged_prefill_attention(q, kp, vp, bt, qs_t, nl_t)
     torch.cuda.synchronize()
@@ -263,8 +299,8 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
         fail("prefill: padding queries are not exact zeros")
     err, rel = compare(out, ref, "prefill")
     T = maxp * PAGE
-    k_ctx = kp[bt.long()].reshape(B, T, KV, HD).transpose(1, 2)
-    v_ctx = vp[bt.long()].reshape(B, T, KV, HD).transpose(1, 2)
+    k_ctx = kp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
+    v_ctx = vp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
     qpos = qs_t.long()[:, None] + torch.arange(Sq, device="cuda")[None, :]
     kpos = torch.arange(T, device="cuda")[None, None, :]
     total = (qs_t + nl_t).long()[:, None, None]
@@ -279,10 +315,10 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
     live = sum(s + n for s, n in zip(q_start, new_lens))
     pairs = sum((s + i + 1) for s, n in zip(q_start, new_lens)
                 for i in range(n))
-    bytes_ = (live * KV * HD * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
+    bytes_ = (live * kv * hd * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
               + 2 * B * 4)
-    flops = 4 * pairs * H * HD
-    G = H // KV
+    flops = 4 * pairs * h * hd
+    G = h // kv
     bq, n_tiles = tiles.plan(Sq, G)
     walks = []
     for s, n in zip(q_start, new_lens):
@@ -290,13 +326,13 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
             last = min((t + 1) * bq, n) - 1     # last real query of the tile
             if last >= t * bq:
                 walks.append((min(bq, Sq - t * bq) * G, s + last + 1))
-    blk = block_bound_ms(walks)
+    blk = block_bound_ms(walks, hd)
     host = host_us(torch, lambda: mod.paged_prefill_attention(
         q, kp, vp, bt, qs_t, nl_t))
     row = _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
                f"prefill B={B} Sq={Sq} q_start={q_start} "
                f"new_lens={new_lens} [tiles: BQ={bq} x {n_tiles}, "
-               f"{n_tiles * B * KV} blocks]")
+               f"{n_tiles * B * kv} blocks]")
     print(f"  heaviest block's bound {blk:.4f} ms (one SM's share of the "
           f"peak); wrapper host time {host:.1f} us a call", flush=True)
     return row
@@ -305,13 +341,13 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush):
 SM_COUNT = 132                 # H100 SXM streaming multiprocessors
 
 
-def block_bound_ms(walks):
+def block_bound_ms(walks, hd=HD):
     """The least time of the heaviest block of a prefill kernel: its
     bf16 operations (rows x keys walked x 4 hd, both products) over one
     SM's share of the card's peak. ``walks`` lists (rows, keys) per block.
     A kernel that never splits a block's keys cannot go below it."""
     rows, keys = max(walks, key=lambda w: w[0] * w[1])
-    return 4 * rows * keys * HD / (BF16_FLOPS_PER_S / SM_COUNT) * 1e3
+    return 4 * rows * keys * hd / (BF16_FLOPS_PER_S / SM_COUNT) * 1e3
 
 
 def host_us(torch, fn, reps=200):
@@ -343,8 +379,9 @@ def _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops, label):
     return row
 
 
-def dense_work(B, Sq, n_keys, q_start, window):
-    """(bytes, flops) the dense attention needs at gemma3's widths for B
+def dense_work(B, Sq, n_keys, q_start, window, shape=(GH, GKV, HD)):
+    """(bytes, flops) the dense attention needs at ``shape`` (H, KV, hd;
+    gemma3's widths by default) for B
     sequences: q read and out written once, each key some query sees read
     once (K and V), and the two products over the visible (query, key)
     pairs (a row that sees no key averages over all of them)."""
@@ -356,22 +393,25 @@ def dense_work(B, Sq, n_keys, q_start, window):
     lo, hi = np.where(none, 0, lo), np.where(none, n_keys, hi)
     pairs = int((hi - lo).sum())
     keys = int(hi.max() - lo.min())
-    bytes_ = 2 * Sq * GH * HD * 2 + 2 * keys * GKV * HD * 2
-    return B * bytes_, B * 4 * pairs * GH * HD
+    h, kv, hd = shape
+    bytes_ = 2 * Sq * h * hd * 2 + 2 * keys * kv * hd * 2
+    return B * bytes_, B * 4 * pairs * h * hd
 
 
 def check_dense(torch, mod, gen, B, Sq, n_keys, q_start, window, softcap,
-                flush, label):
-    """prefill_attention at gemma3's shapes: q (B, Sq, 32, 128); K/V the
-    first n_keys rows of a (B, 2048, 16, 128) slot buffer (a separate
-    (B, Sq, 16, 128) pair for the cache-less case, n_keys == Sq)."""
+                flush, label, shape=(GH, GKV, HD)):
+    """prefill_attention at ``shape`` (H, KV, hd; gemma3's by default): q
+    (B, Sq, H, hd); K/V the first n_keys rows of a (B, 2048, KV, hd) slot
+    buffer (a separate (B, Sq, KV, hd) pair for the cache-less case,
+    n_keys == Sq)."""
+    h, kv, hd = shape
     from repro_torch.kernels import tiles
     S = max(n_keys, GMAX) if n_keys != Sq else n_keys
-    q = torch.randn((B, Sq, GH, HD), generator=gen, device="cuda").to(
+    q = torch.randn((B, Sq, h, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
-    kb = torch.randn((B, S, GKV, HD), generator=gen, device="cuda").to(
+    kb = torch.randn((B, S, kv, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
-    vb = torch.randn((B, S, GKV, HD), generator=gen, device="cuda").to(
+    vb = torch.randn((B, S, kv, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
     k, v = kb[:, :n_keys], vb[:, :n_keys]
     kw = dict(q_start=q_start, window=window, softcap=softcap)
@@ -389,26 +429,27 @@ def check_dense(torch, mod, gen, B, Sq, n_keys, q_start, window, softcap,
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qt, kt, vt, mask),
                          flush=flush)
-    bytes_, flops = dense_work(B, Sq, n_keys, q_start, window)
+    bytes_, flops = dense_work(B, Sq, n_keys, q_start, window, shape)
     host = host_us(torch, lambda: mod.prefill_attention(q, k, v, **kw))
     blk = None
     if mod.decode_route(q, k, v):
         lo, hi = mod.key_range(n_keys, Sq, q_start, window)
-        n, chunk = mod.split_plan(B, GKV, lo, hi)
+        n, chunk = mod.split_plan(B, kv, lo, hi)
         route = (f"decode route, split: keys [{lo}, {hi}) n_split={n} "
-                 f"chunk={chunk} blocks={B * GKV * n}")
+                 f"chunk={chunk} blocks={B * kv * n}")
     else:
-        bq, n_tiles = tiles.plan(Sq, GH // GKV)
+        bq, n_tiles = tiles.plan(Sq, h // kv)
         route = (f"chunk route, tiles: BQ={bq} x {n_tiles}, "
-                 f"{n_tiles * B * GKV} blocks")
+                 f"{n_tiles * B * kv} blocks")
         walks = []
         for t in range(n_tiles):
             q0, q1 = t * bq, min(Sq, (t + 1) * bq)
             lo, hi = mod.key_range(n_keys, q1 - q0, q_start + q0, window)
-            walks.append(((q1 - q0) * (GH // GKV), hi - lo))
-        blk = block_bound_ms(walks)
+            walks.append(((q1 - q0) * (h // kv), hi - lo))
+        blk = block_bound_ms(walks, hd)
     row = _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
-               f"prefill_attention {label}: B={B} Sq={Sq} n_keys={n_keys} "
+               f"prefill_attention {label}: H={h} KV={kv} hd={hd} B={B} "
+               f"Sq={Sq} n_keys={n_keys} "
                f"q_start={q_start} window={window} softcap={softcap} "
                f"[{route}]")
     if blk is not None:
@@ -519,45 +560,44 @@ class PlainOps:
         return mod.plain(*args, **kw)
 
 
-def model_check(torch, executor, depth=2):
-    """The served full-width weights, cut to their first ``depth`` layers,
-    on a small input (a 96-token prefill chunk, then one decode step):
-    the forward through the kernels against the same forward with
-    attention through the kernels' plain torch versions, on the same
-    device. With these random weights the attention logits are large
-    (std ~100), so softmax is nearly one-hot and a comparison against a
-    differently rounded attention (bf16 logits, as the gather path and
-    the JAX package compute them) flips keys; the plain versions round as
-    the kernels do (f32 logits), so the two paths differ only in
-    summation order and the P rounding of the tensor-core path."""
-    import dataclasses
+def model_check(torch, executor, label, depth=2):
+    """The served full-width weights of a one-stage paged model, cut to
+    their first ``depth`` layers, on a small input (a 96-token prefill
+    chunk, then one decode step, B=2) through the paged cache.
 
+    Gate: inside that forward, every paged attention call (each layer,
+    both steps) runs the kernel and its plain version on the same inputs
+    (``CheckedOps``); their outputs must agree within rms 1e-2 and max
+    5e-2 of the plain output's rms and max. Reported, not gated: the
+    logits of the forward with attention through the kernels against the
+    forward through their plain versions. With these random weights the
+    attention logits are large (std ~100), so softmax rows are nearly
+    one-hot and a row whose top two keys nearly tie picks another key on
+    a last-bit difference; the two free-running forwards can then part
+    whatever the kernels' accuracy."""
     from repro_torch.cache.paged import PagedStackStore
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
-    full = executor.cfg
-    if full.stages() != [((full.pattern()[0],), full.num_layers)]:
-        fail("model check: expected one stacked stage")
+    cfg, layers = paged_layers(executor, depth)
     B, C, ppl = 2, 96, 16        # 2 rows x 7 pages, trash page 15
     gen = torch.Generator(device="cpu").manual_seed(7)
-    toks = torch.randint(1, full.vocab_size, (B, C + 1), generator=gen)
+    toks = torch.randint(1, cfg.vocab_size, (B, C + 1), generator=gen)
     bt = torch.tensor([[i * 7 + j for j in range(7)] for i in range(B)],
                       dtype=torch.int32, device="cuda")
-    cfg = dataclasses.replace(full, num_layers=depth)
-    layers = [{"b0": executor.layers[0]["b0"][:depth]}]
+    checked = CheckedOps()
     outs = {}
     kernel_ops = L.kops
-    for name, ops in (("kernel", kernel_ops), ("plain", PlainOps)):
-        stores = [{f"b{i}": PagedStackStore.build(
-            reps, ppl, PAGE, cfg.num_kv_heads, cfg.hd, device="cuda")
-            for i, _ in enumerate(period)} for period, reps in cfg.stages()]
+    for name, ops in (("kernel", kernel_ops), ("plain", PlainOps),
+                      ("checked", checked)):
+        stores = [{"b0": PagedStackStore.build(
+            depth, ppl, PAGE, cfg.num_kv_heads, cfg.hd, device="cuda")}]
         logits = []
         L.kops = ops
         try:
             for start, n in ((0, C), (C, 1)):
-                new_lens = torch.tensor([n, n], dtype=torch.int32,
-                                        device="cuda")
+                new_lens = torch.full((B,), n, dtype=torch.int32,
+                                      device="cuda")
                 cache = {"stages": stores, "block_table": bt,
                          "lengths": torch.full((B,), start,
                                                dtype=torch.int32,
@@ -566,7 +606,7 @@ def model_check(torch, executor, depth=2):
                 pos = (start + torch.arange(n, device="cuda"))[None].expand(
                     B, n)
                 with torch.no_grad():
-                    lg, _, _ = T.forward(
+                    lg, _, aux = T.forward(
                         executor.params, cfg,
                         toks[:, start:start + n].cuda(), positions=pos,
                         cache=cache, attn_impl="kernel",
@@ -575,20 +615,18 @@ def model_check(torch, executor, depth=2):
         finally:
             L.kops = kernel_ops
         outs[name] = torch.cat(logits, dim=1)
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail(f"{label} model check: non-finite logits")
     a, b = outs["kernel"], outs["plain"]
-    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-        fail("model check: non-finite logits")
-    err = (a - b).abs().max().item()
-    excess = ((a - b).abs() - (0.1 + 0.1 * b.abs())).max().item()
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    print(f"model check (full width, first {depth} layers, prefill {C} + "
-          f"decode 1, B={B}; kernels vs their plain versions in the "
-          f"forward): logits {tuple(a.shape)}, max|diff| {err:.4f} of "
+    moe = f"; MoE aux loss {aux.item():.4f}" if cfg.num_experts else ""
+    print(f"{label} model check (full width, first {depth} layers, prefill "
+          f"{C} + decode 1, B={B}, paged): {len(checked.calls)} attention "
+          f"calls checked; free-running forwards, kernels vs plain: logits "
+          f"{tuple(a.shape)}, max|diff| {(a - b).abs().max().item():.4f} of "
           f"max|logit| {b.abs().max().item():.4f}, argmax agreement "
-          f"{agree:.2f}", flush=True)
-    if excess > 0:
-        fail("model check: kernel path outside atol 0.1 + rtol 0.1 of the "
-             "plain path")
+          f"{agree:.2f}{moe}", flush=True)
+    checked.gate(f"{label} model check", 2 * depth)
 
 
 def gemma_serve_phase(torch, n_requests: int):
@@ -664,24 +702,51 @@ def gemma_serve_phase(torch, n_requests: int):
 
 
 class CheckedOps:
-    """``kernels.ops`` for a check inside the forward: each
-    ``prefill_attention`` call runs the kernel and its plain version on the
-    same inputs, records how far apart they are, and returns the plain
+    """``kernels.ops`` for a check inside the forward: each attention call
+    runs the kernel and its plain version on the same inputs, records how
+    far apart they are (q's shape, the window, rms and max of the
+    difference relative to the plain output's), and returns the plain
     output, so every layer of the check sees the same inputs."""
 
     def __init__(self):
         self.calls = []
 
-    def prefill_attention(self, q, k, v, **kw):
-        from repro_torch.kernels import prefill_attention as mod
-        a = mod.prefill_attention(q, k, v, **kw).float()
-        b = mod.plain(q, k, v, **kw)
+    def _check(self, mod, fn, q, *args, **kw):
+        a = fn(q, *args, **kw).float()
+        b = mod.plain(q, *args, **kw)
         d, bf = (a - b.float()), b.float()
         self.calls.append((tuple(q.shape), kw.get("window", 0),
                            (d.square().mean().sqrt()
                             / bf.square().mean().sqrt()).item(),
                            (d.abs().max() / bf.abs().max()).item()))
         return b
+
+    def prefill_attention(self, q, k, v, **kw):
+        from repro_torch.kernels import prefill_attention as mod
+        return self._check(mod, mod.prefill_attention, q, k, v, **kw)
+
+    def paged_attention(self, q, *args, **kw):
+        from repro_torch.kernels import paged_attention as mod
+        return self._check(mod, mod.paged_attention, q, *args, **kw)
+
+    def paged_prefill_attention(self, q, *args, **kw):
+        from repro_torch.kernels import paged_prefill_attention as mod
+        return self._check(mod, mod.paged_prefill_attention, q, *args, **kw)
+
+    def gate(self, label, expect):
+        """Print every call; fail unless there were ``expect`` of them, each
+        within rms 1e-2 and max 5e-2 of the plain output's rms and max."""
+        for shape, window, rel_rms, rel_max in self.calls:
+            print(f"  attention in the forward, q {shape}, window {window}: "
+                  f"kernel vs plain rms {rel_rms:.2e}, max {rel_max:.2e} "
+                  f"(relative to the plain output)")
+        if len(self.calls) != expect:
+            fail(f"{label}: {len(self.calls)} attention calls checked, "
+                 f"expected {expect}")
+        bad = [c for c in self.calls if not (c[2] <= 1e-2 and c[3] <= 5e-2)]
+        if bad:
+            fail(f"{label}: kernel and plain version part inside the "
+                 f"forward: {bad}")
 
 
 def gemma_model_check(torch, executor, depth=6, prompt=1536):
@@ -742,10 +807,6 @@ def gemma_model_check(torch, executor, depth=6, prompt=1536):
         outs[name] = torch.cat(logits, dim=1)
     if not all(torch.isfinite(o).all() for o in outs.values()):
         fail("gemma3 model check: non-finite logits")
-    for shape, window, rel_rms, rel_max in checked.calls:
-        print(f"  prefill_attention in the forward, q {shape}, window "
-              f"{window}: kernel vs plain rms {rel_rms:.2e}, max "
-              f"{rel_max:.2e} (relative to the plain output)")
     a, b = outs["kernel"], outs["plain"]
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     print(f"gemma3 model check (full width, first {depth} layers "
@@ -755,12 +816,333 @@ def gemma_model_check(torch, executor, depth=6, prompt=1536):
           f"{tuple(a.shape)}, max|diff| {(a - b).abs().max().item():.4f} "
           f"of max|logit| {b.abs().max().item():.4f}, argmax agreement "
           f"{agree:.2f}", flush=True)
-    if len(checked.calls) != 2 * depth:
-        fail("gemma3 model check: not every layer's attention was checked")
-    bad = [c for c in checked.calls if not (c[2] <= 1e-2 and c[3] <= 5e-2)]
-    if bad:
-        fail(f"gemma3 model check: kernel and plain version part inside "
-             f"the forward: {bad}")
+    checked.gate("gemma3 model check", 2 * depth)
+
+
+# ---------------------------------------------------------------------------
+# the other decoder families: phi3.5-moe (paged), jamba, whisper, xlstm
+# (dense slots)
+# ---------------------------------------------------------------------------
+
+PHI = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 24        # of 32: at full depth the bf16 weights (83.7 GB) fill
+#                        the card; at 24 they are 62.9 GB
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5       # of 72: the published pattern's first five layers
+#                        (Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention),
+#                        48.1 GB in bf16; one 8-layer period is ~91 GB
+
+
+def step_times(torch, fn, reps=5):
+    """(host enqueue, enqueue plus device, device) ms of one call of
+    ``fn``: ``timed_steps`` over ``reps`` calls, and the device time from
+    the profiler (the sum of the device's own kernel and copy times) over
+    ``reps`` more, per call. ``fn`` must not synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+    host, total = timed_steps(torch, fn, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, dev_us = device_share(prof, ())
+    return host * 1e3, total * 1e3, dev_us / reps / 1e3
+
+
+def print_step(label, times):
+    host, total, dev = times
+    print(f"  {label}: host enqueue {host:.2f} ms, enqueue+device "
+          f"{total:.2f} ms, device {dev:.2f} ms "
+          f"({'host' if host >= dev else 'device'}-bound)", flush=True)
+
+
+def paged_step_times(torch, executor, B=8, ctx=1000, chunk=512):
+    """Host and device time of a B-row decode step at context ``ctx`` and
+    of a ``chunk``-token prefill step at context ``ctx``, through the
+    forward the executor's ``_step`` runs (inputs already on the card)."""
+    T, cfg, alloc = executor.T, executor.cfg, executor.allocator
+    page = alloc.page_size
+    rids = [f"__step_{i}" for i in range(B)]
+    for rid in rids:
+        alloc.allocate(rid, ctx + chunk + 8)
+    try:
+        def make(rows, n):
+            bt = executor._block_table_rows(
+                rows, executor._bucket_pages(-(-(ctx + n) // page)))
+            gen = np.random.default_rng(5)
+            args = dict(
+                tokens=gen.integers(1, cfg.vocab_size, (len(rows), n)),
+                positions=np.tile(ctx + np.arange(n), (len(rows), 1)),
+                block_table=bt, lengths=np.full(len(rows), ctx),
+                new_lens=np.full(len(rows), n))
+            t = {k: torch.from_numpy(np.asarray(v, np.int32)).cuda()
+                 for k, v in args.items()}
+            cache = {"stages": executor._stores,
+                     "block_table": t["block_table"],
+                     "lengths": t["lengths"], "new_lens": t["new_lens"]}
+
+            def step():
+                with torch.no_grad():
+                    lg, _, _ = T.forward(
+                        executor.params, cfg, t["tokens"],
+                        positions=t["positions"], cache=cache,
+                        last_pos=t["new_lens"] - 1,
+                        attn_impl=executor.attn_impl, layers=executor.layers)
+                    return torch.argmax(lg[:, 0], dim=-1)
+            return step
+        print_step(f"decode step B={B} at context {ctx}",
+                   step_times(torch, make(rids, 1)))
+        print_step(f"prefill step, one {chunk}-token chunk at context {ctx}",
+                   step_times(torch, make(rids[:1], chunk), reps=3))
+    finally:
+        for rid in rids:
+            alloc.free(rid)
+
+
+def slot_step_times(torch, executor, ctx=1000):
+    """Host and device time of one request's decode forward at context
+    ``ctx`` over a dense slot cache (the dense-slot path's decode step),
+    then the slot zeroed. (A prefill chunk's time shows in TTFT; xLSTM's
+    takes seconds of host, a Python step per token, and its profile
+    would take minutes.)"""
+    from repro_torch.models.params import tree_leaves
+    cache = executor.caches[0]
+    tok = torch.ones((1, 1), dtype=torch.int64, device="cuda")
+
+    def step():
+        cache["idx"].fill_(ctx)
+        with torch.no_grad():
+            return executor._legacy_forward(tok, None, cache, ctx)[0]
+    print_step(f"decode forward at context {ctx}", step_times(torch, step))
+    for leaf in tree_leaves(cache, torch.is_tensor):
+        leaf.zero_()
+
+
+def family_serve_phase(torch, label, model_cfg, n_requests, *, max_len,
+                       dense, check):
+    """Serve ``model_cfg`` through ``build_stack``'s real mode (warm-up,
+    profiler, estimator, classifier), then the engine on MH requests at 2 req/s, seed 0. ``dense``: the
+    dense-slot path, with 4 slots, ``max_num_seqs`` 3 and KV pages only
+    accounting (sized so that no prompt is rejected), as the gemma3 phase
+    runs it; else the batched paged path at the default KV capacity.
+    ``check(executor, counts)`` fails the phase on the model's own
+    conditions (kernels launched, path taken). Returns (executor,
+    launches, summary dict)."""
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_stack
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.metrics import fmt_table, summarize
+    from repro_torch.serving.request import State
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kw = dict(max_slots=4, kv_pages=4096) if dense else {}
+    executor, classifier, engine_cfg, profile, _ = build_stack(
+        model_cfg, "real", max_len=max_len, device="cuda", **kw)
+    t_build = time.perf_counter() - t0
+    cfg = executor.cfg
+    print(f"model {cfg.name}: {cfg.num_layers} layers "
+          f"{sorted(set(cfg.pattern()))}, d_model {cfg.d_model}, "
+          f"H={cfg.num_heads}, KV={cfg.num_kv_heads}, hd={cfg.hd}, experts "
+          f"{cfg.num_experts} top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, dtype {cfg.dtype}; "
+          f"legacy={executor.legacy}, max_len {executor.max_len}; stack "
+          f"built (weights, warm-up, {len(profile.records)} profiled "
+          f"requests, estimator, classifier) in {t_build:.2f}s; device "
+          f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+          f"while building {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    if executor.legacy != dense:
+        fail(f"{label} serve: legacy={executor.legacy}, expected {dense}")
+    if dense:
+        engine_cfg = dataclasses.replace(
+            engine_cfg, max_num_seqs=executor.max_slots - 1)
+    reqs = generate(WorkloadConfig(mix="MH", rate=2.0,
+                                   num_requests=n_requests, seed=0))
+    engine = Engine(make_policy("tcm"), executor, classifier, engine_cfg)
+    t1 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = {r.rid: len(executor.emitted.get(r.rid, [])) for r in reqs}
+    summary = summarize(done)
+    print(fmt_table(summary, f"{label} | tcm | MH | {n_requests} requests"))
+    n_tok = sum(tokens.values())
+    print(f"{label} serve: {len(done)}/{len(reqs)} finished, "
+          f"{engine.iterations} iterations, {n_tok} tokens in "
+          f"{t_run:.2f}s wall = {n_tok / t_run:.1f} tokens/s; launches "
+          f"{counts}; peak device memory while serving {peak / 2**30:.2f} "
+          f"GiB ({peak} bytes); prompt tokens "
+          f"{sorted(r.prompt_tokens for r in reqs)}", flush=True)
+    unfinished = [r.rid for r in reqs if r.state is not State.FINISHED]
+    if unfinished:
+        fail(f"{label} serve: requests not finished: {unfinished}")
+    empty = [rid for rid, n in tokens.items() if n == 0]
+    if empty:
+        fail(f"{label} serve: requests with no tokens: {empty}")
+    if "jax" in sys.modules:
+        fail(f"{label} serve: jax was imported")
+    check(executor, counts)
+    if dense:
+        slot_step_times(torch, executor)
+    else:
+        paged_step_times(torch, executor)
+    return executor, counts
+
+
+def need(label, counts, launched=(), idle=()):
+    """A ``check`` for ``family_serve_phase``: each kernel in ``launched``
+    launched at least once in the phase, none in ``idle``."""
+    for name in launched:
+        if counts[name] <= 0:
+            fail(f"{label} serve: kernel {name} never launched")
+    for name in idle:
+        if counts[name] != 0:
+            fail(f"{label} serve: kernel {name} launched")
+
+
+def paged_layers(executor, depth):
+    """The served layers of a one-stage model cut to its first ``depth``,
+    with the config to match."""
+    full = executor.cfg
+    if full.stages() != [((full.pattern()[0],), full.num_layers)]:
+        fail("model check: expected one stacked stage")
+    return (dataclasses.replace(full, num_layers=depth),
+            [{"b0": executor.layers[0]["b0"][:depth]}])
+
+
+def per_token_rel(out, ref):
+    """Per token (last axis: features) rms of ``out - ref`` over the rms of
+    ``ref``, for tokens whose ``ref`` is not all zero; and the overall
+    relative rms."""
+    d = (out.float() - ref.float())
+    rr = ref.float().square().mean(-1).sqrt()
+    live = rr > 0
+    tok = d.square().mean(-1).sqrt()[live] / rr[live]
+    return tok, (d.square().mean().sqrt() / ref.float().square().mean()
+                 .sqrt()).item()
+
+
+def moe_block_check(torch, executor, S=512):
+    """Layer 0's expert weights of the served phi3.5-moe (16 experts, d_ff
+    6400, bf16 on the card): ``moe_block`` over a 512-token chunk (G=512,
+    C=80 slots an expert) on the card against the same function in f32 on
+    the CPU on the same values. The routing (f32 router logits on both)
+    must be identical; each token's output within 2e-2 of its rms."""
+    from repro_torch.models import layers as L
+    cfg = executor.cfg
+    p = executor.layers[0]["b0"][0]["moe"]
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    x = torch.randn((1, S, cfg.d_model), generator=gen).to(torch.bfloat16)
+    xc = x.cuda()
+    with torch.no_grad():
+        route = L.moe_route(xc, p["router"], cfg)
+        y, aux = L.moe_block(xc, p, cfg)
+        torch.cuda.synchronize()
+        p32 = {k: v.float().cpu() for k, v in p.items()}
+        ref_route = L.moe_route(x.float(), p32["router"], cfg)
+        ref, ref_aux = L.moe_block(x.float(), p32, cfg)
+    drops = int((~route["keep"]).sum())
+    gone = int((~route["keep"]).all(-1).sum())
+    same = bool(torch.equal(route["topi"].cpu(), ref_route["topi"])
+                and torch.equal(route["keep"].cpu(), ref_route["keep"]))
+    tok, rel = per_token_rel(y.cpu(), ref)
+    times = step_times(torch, lambda: L.moe_block(xc, p, cfg)[0], reps=5)
+    print(f"moe_block check (phi3.5-moe layer 0, {cfg.num_experts} experts "
+          f"top-{cfg.experts_per_token}, a {S}-token chunk: G={route['G']}, "
+          f"C={route['C']} slots an expert): bf16 on the card vs f32 on the "
+          f"CPU: routing identical {same}; {drops} of "
+          f"{S * cfg.experts_per_token} (token, expert) choices dropped by "
+          f"capacity, {gone} tokens dropped whole; per-token rms error max "
+          f"{tok.max().item():.3e}, median {tok.median().item():.3e}, "
+          f"overall {rel:.3e}; aux {aux.item():.4f} vs {ref_aux.item():.4f}"
+          f"; the block on the card: device {times[2]:.3f} ms, host "
+          f"enqueue {times[0]:.3f} ms", flush=True)
+    if not same:
+        fail("moe_block check: routing differs between card and CPU")
+    if not (tok.max().item() <= 2e-2):
+        fail(f"moe_block check: a token's output is {tok.max().item():.3e} "
+             "of its rms away from the f32 reference")
+
+
+def mamba_check(torch, executor, S=512, decodes=8):
+    """Layer 0's Mamba weights of the served full-width jamba (d_model
+    8192, DI 16384, N 16, conv 4): a 512-token prefill from a zero state,
+    then 8 decode steps from the state it leaves, against the same
+    function in f32 on the CPU on the same values. In f32 on the card
+    each token's output within 1e-4 of its rms and the final SSM state
+    within 1e-4: the card computes the function. In bf16 on the card (as
+    served) no further from the f32 reference (each token's error
+    relative to its rms at worst, overall, final state) than the same
+    bf16 function on the CPU is, with 10% slack, and overall and state
+    within 2e-2: bf16 rounding alone moves a token of small output by
+    several % of its rms, on either device."""
+    from repro_torch.models.ssm import mamba_block
+    cfg = executor.cfg
+    DI, N, KC = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    if cfg.pattern()[0] != "mamba":
+        fail("mamba_block check: layer 0 of the served model is not Mamba")
+    p = executor.layers[0]["b0"][0]["mamba"]
+    x = torch.randn((1, S + decodes, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3)).to(
+                        torch.bfloat16)
+
+    def run(dtype, device):
+        params = {k: v.to(device=device, dtype=dtype) for k, v in p.items()}
+        xs = x.to(device=device, dtype=dtype)
+        state = {"conv": torch.zeros((1, KC - 1, DI), dtype=dtype,
+                                     device=device),
+                 "ssm": torch.zeros((1, DI, N), device=device)}
+        ys = []
+        for a, b in [(0, S)] + [(t, t + 1) for t in range(S, S + decodes)]:
+            y, state = mamba_block(xs[:, a:b], params, cfg, cache=state)
+            ys.append(y)
+        return torch.cat(ys, dim=1).cpu(), state
+
+    with torch.no_grad():
+        ref, ref_st = run(torch.float32, "cpu")
+        errs = {}
+        for name, dtype, device in (("card bf16", torch.bfloat16, "cuda"),
+                                    ("card f32", torch.float32, "cuda"),
+                                    ("CPU bf16", torch.bfloat16, "cpu")):
+            y, st = run(dtype, device)
+            tok, rel = per_token_rel(y, ref)
+            errs[name] = (tok.max().item(), rel,
+                          ((st["ssm"].cpu() - ref_st["ssm"]).norm()
+                           / ref_st["ssm"].norm()).item())
+            if name == "card bf16":
+                card_st = st
+        xc = x[:, :S].cuda()
+        zero = {"conv": torch.zeros((1, KC - 1, DI), dtype=torch.bfloat16,
+                                    device="cuda"),
+                "ssm": torch.zeros((1, DI, N), device="cuda")}
+        pre = step_times(torch, lambda: mamba_block(xc, p, cfg,
+                                                    cache=zero)[0], reps=3)
+        x1 = x[:, S:S + 1].cuda()
+        dec = step_times(torch, lambda: mamba_block(x1, p, cfg,
+                                                    cache=card_st)[0])
+    print(f"mamba_block check (jamba full width: d_model {cfg.d_model}, "
+          f"DI {DI}, N {N}, conv {KC}; prefill {S} + {decodes} decodes, "
+          f"against f32 on the CPU; a token's error relative to its rms at "
+          f"worst, overall, final ssm state): " + "; ".join(
+              f"{name} {e[0]:.3e}, {e[1]:.3e}, {e[2]:.3e}"
+              for name, e in errs.items()), flush=True)
+    print_step(f"mamba_block prefill of {S} tokens", pre)
+    print_step("mamba_block decode step", dec)
+    card, card32, base = (errs[k] for k in ("card bf16", "card f32",
+                                            "CPU bf16"))
+    if not (card32[0] <= 1e-4 and card32[2] <= 1e-4):
+        fail("mamba_block check: the card's f32 block is not the function")
+    if not (all(c <= 1.1 * b for c, b in zip(card, base))
+            and card[1] <= 2e-2 and card[2] <= 2e-2):
+        fail("mamba_block check: the card's bf16 block is further from the "
+             "f32 reference than bf16 on the CPU is")
 
 
 def profile_phase(torch, executor):
@@ -1008,6 +1390,12 @@ def main():
                  "split boundaries")
     rows["paged_prefill_attention"] = check_prefill(
         torch, pre, gen, [0, 1024, 3584, 0], [512, 300, 512, 0], 512, flush)
+    # phi3.5-moe's shapes (GQA group 4), new to serving in this run
+    phi = (32, 8, HD)
+    check_decode(torch, dec, gen, DECODE_LENGTHS, flush,
+                 "B=16 mixed, phi3.5-moe H=32 KV=8", shape=phi)
+    check_prefill(torch, pre, gen, [0, 1024, 3584, 0], [512, 300, 512, 0],
+                  512, flush, shape=phi)
 
     phase("prefill_attention vs plain")
     dense_rows = {label: check_dense(torch, dense, gen, *case, flush, label)
@@ -1022,6 +1410,15 @@ def main():
                       ("decode past the buffer, window",
                        (1, 1, 2048, 2100, GWIN, 0.0)),
                       ("chunk, softcap", (1, 512, 2048, 1536, 0, 50.0)))}
+    # whisper-base's decoder self-attention (H = KV = 8, hd 64) and jamba's
+    # attention layer (H=64, KV=8), new to serving in this run
+    for label, case, shape in (
+            ("whisper chunk", (1, 512, 2048, 1536, 0, 0.0), (8, 8, 64)),
+            ("whisper decode", (1, 1, 2048, 2047, 0, 0.0), (8, 8, 64)),
+            ("whisper cache-less", (1, 448, 448, 0, 0, 0.0), (8, 8, 64)),
+            ("jamba chunk", (1, 512, 2048, 1536, 0, 0.0), (64, 8, HD)),
+            ("jamba decode", (1, 1, 2048, 2047, 0, 0.0), (64, 8, HD))):
+        check_dense(torch, dense, gen, *case, flush, label, shape=shape)
     rows["prefill_attention"] = dict(dense_rows["chunk"], **{
         f"decode_{key}": dense_rows["decode"][src] for key, src in (
             ("kernel_ms", "ms"), ("plain_ms", "plain_ms"),
@@ -1033,7 +1430,7 @@ def main():
     phase("serve")
     executor, counts = serve_phase(torch, 20, breakdown=args.profile)
     phase("model check")
-    model_check(torch, executor)
+    model_check(torch, executor, "qwen2-vl-2b")
     if args.profile:
         phase("profile")
         profile_phase(torch, executor)
@@ -1054,21 +1451,77 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    from repro_torch.configs import get_config
+    launches = {"qwen2-vl-2b": counts, "gemma3-27b": g_counts}
+    phase(f"phi3.5-moe serve ({PHI_LAYERS} of 32 layers)")
+    phi_cfg = dataclasses.replace(get_config(PHI), num_layers=PHI_LAYERS)
+    m_executor, launches[PHI] = family_serve_phase(
+        torch, f"{PHI} ({PHI_LAYERS} of 32 layers)", phi_cfg, 12,
+        max_len=4096, dense=False, check=lambda ex, c: need(
+            "phi3.5-moe", c, launched=("paged_attention",
+                                       "paged_prefill_attention")))
+    phase("phi3.5-moe model check")
+    model_check(torch, m_executor, "phi3.5-moe")
+    moe_block_check(torch, m_executor)
+    del m_executor
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"jamba serve ({JAMBA_LAYERS} of 72 layers)")
+    jamba_cfg = dataclasses.replace(get_config(JAMBA),
+                                    num_layers=JAMBA_LAYERS)
+    j_executor, launches[JAMBA] = family_serve_phase(
+        torch, f"{JAMBA} ({JAMBA_LAYERS} of 72 layers)", jamba_cfg, 6,
+        max_len=2048, dense=True,
+        check=lambda ex, c: need("jamba", c, launched=("prefill_attention",),
+                                 idle=("paged_attention",
+                                       "paged_prefill_attention")))
+    phase("jamba mamba_block check")
+    mamba_check(torch, j_executor)
+    del j_executor
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("whisper-base serve")
+    w_executor, launches["whisper-base"] = family_serve_phase(
+        torch, "whisper-base (full)", get_config("whisper-base"), 8,
+        max_len=2048, dense=True, check=lambda ex, c: need(
+            "whisper", c, launched=("prefill_attention",),
+            idle=("paged_attention", "paged_prefill_attention")))
+    print(f"whisper-base: prefill_attention launched "
+          f"{launches['whisper-base']['prefill_attention']} times at hd "
+          f"{w_executor.cfg.hd}", flush=True)
+    del w_executor
+
+    phase("xlstm-125m serve")
+    x_executor, launches["xlstm-125m"] = family_serve_phase(
+        torch, "xlstm-125m (full)", get_config("xlstm-125m"), 6,
+        max_len=1024, dense=True, check=lambda ex, c: need(
+            "xlstm", c, idle=tuple(c)))
+    del x_executor
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for model, c in launches.items():
+        print(f"launches, {model}: {c}")
+    total = {name: sum(c[name] for c in launches.values())
+             for name in counts}
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:78",
-             launches=counts["paged_attention"],
+             launches=total["paged_attention"],
              **rows["paged_attention"]),
         dict(name="paged_prefill_attention", route="cuda",
              source="src/repro_torch/csrc/paged_prefill_attention.cu",
              replaces="src/repro/kernels/paged_prefill_attention.py:91",
-             launches=counts["paged_prefill_attention"],
+             launches=total["paged_prefill_attention"],
              **rows["paged_prefill_attention"]),
         dict(name="prefill_attention", route="cuda",
              source="src/repro_torch/csrc/prefill_attention.cu",
              replaces="src/repro/kernels/prefill_attention.py:69",
-             launches=g_counts["prefill_attention"],
+             launches=total["prefill_attention"],
              **rows["prefill_attention"]),
     ]
     print(f"total {time.perf_counter() - t_start:.1f}s")

@@ -7,9 +7,10 @@ Executors:
   sim  — cost model derived from the FULL assigned architecture (A100-class
          coefficients); workload-scale scheduler experiments.
   real — the torch model (the reduced config unless ``--full``) on the
-         GPU: the batched paged path, with attention through the
-         hand-written paged kernels, or — for archs outside the paged
-         protocol (gemma3's sliding window) — the dense-slot path;
+         GPU: the batched paged path for attention and MoE decoders, with
+         attention through the hand-written paged kernels, or — for archs
+         outside the paged protocol (gemma3's sliding window, jamba's
+         Mamba layers, xLSTM, whisper) — the dense-slot path;
          ``--device cpu`` runs it on the CPU through the kernels' plain
          versions.
   real-legacy — the sequential dense-slot path for any arch (the
@@ -33,23 +34,28 @@ from repro_torch.serving.workload import WorkloadConfig, generate, \
     profiling_workload
 
 
-def build_stack(arch: str, executor_kind: str = "sim", *,
+def build_stack(model, executor_kind: str = "sim", *,
                 naive_classifier: bool = False, model_preset: str | None = None,
                 kv_pages: int | None = None, token_budget: int = 512,
                 slo_scale: float = 5.0, full: bool = False,
                 max_len: int = 256, max_slots: int = 16, device="cuda"):
     """(executor, classifier, engine_cfg, profile, estimator) for one model.
 
-    Real mode takes the reduced config unless ``full`` (the assigned
-    configuration at its published widths), and warms the executor up
-    before profiling starts, so the first profiled request does not pay
-    the kernels' build and the device's start-up. ``max_slots`` is the
+    ``model`` is an arch name or a ``ModelConfig``, used as given (a
+    published configuration cut in depth, say) and naming the profile. Of
+    a name, real mode takes the reduced config unless ``full`` (the
+    assigned configuration at its published widths). Real mode warms the
+    executor up before profiling starts, so the first profiled request
+    does not pay the kernels' build and the device's start-up. ``max_slots`` is the
     number of dense slot caches the legacy path keeps (and, with
     ``max_len``, the default KV capacity).
     """
+    named = isinstance(model, str)
+    arch = model if named else model.name
     if executor_kind == "sim":
         cm = (make_cost_model(model_preset) if model_preset
-              else cost_model_for_arch(get_config(arch)))
+              else cost_model_for_arch(get_config(arch) if named
+                                       else model))
         executor = SimExecutor(cm)
         prof_reqs = profiling_workload()
     elif executor_kind in ("real", "real-legacy"):
@@ -61,7 +67,9 @@ def build_stack(arch: str, executor_kind: str = "sim", *,
             max_slots=max_slots, max_len=max_len,
             legacy=(executor_kind == "real-legacy"),
             num_pages=kv_pages).resolved()
-        model_cfg = get_config(arch) if full else get_reduced(arch)
+        model_cfg = model
+        if named:
+            model_cfg = get_config(arch) if full else get_reduced(arch)
         executor = ModelExecutor(model_cfg, exec_cfg, device=device)
         warm_up(executor)
         prof_reqs = profiling_workload(n_per_modality=8)

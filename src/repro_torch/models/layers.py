@@ -1,7 +1,7 @@
 """Core transformer layers: norms, grouped-GQA attention (over the paged KV
-cache, over a dense slot cache, or with no cache), and the dense SwiGLU MLP.
-Plain functions on tensors: params are dict trees produced from ParamDecl
-declarations in transformer.py.
+cache, over a dense slot cache, or with no cache), the dense SwiGLU MLP
+and the capacity-based MoE. Plain functions on tensors: params are dict
+trees produced from ParamDecl declarations in transformer.py.
 
 The serving forward calls these once per layer per step, so each layer's
 weights are regrouped once at load (``fuse_block``): the three QKV
@@ -36,6 +36,13 @@ def rms_norm_scaled(x, scale, eps: float = 1e-6):
                       eps=eps).to(x.dtype)
 
 
+def layer_norm(x, w, b, eps: float = 1e-6):
+    """LayerNorm in f32 (the encoder-decoder's norm)."""
+    return F.layer_norm(x.to(torch.float32), (x.shape[-1],),
+                        weight=w.to(torch.float32), bias=b.to(torch.float32),
+                        eps=eps).to(x.dtype)
+
+
 def _softcap(logits, cap: float):
     if cap and cap > 0:
         return torch.tanh(logits / cap) * cap
@@ -58,13 +65,32 @@ def fuse_attn(a, cfg: ModelConfig) -> dict:
     return fused
 
 
+NORMS = ("ln1", "ln2", "ln_x")
+
+
 def fuse_block(bp, cfg: ModelConfig) -> dict:
-    """One ATTN or ATTN_L block's weights (a layer of the ``block_decls``
-    tree) regrouped for the forward: ``ln1``/``ln2`` scales, the
-    ``fuse_attn`` weights, and the MLP."""
-    return {"ln1": 1.0 + bp["ln1"].to(torch.float32),
-            "ln2": 1.0 + bp["ln2"].to(torch.float32),
-            **fuse_attn(bp["attn"], cfg), "mlp": bp["mlp"]}
+    """One block's weights (a layer of the ``block_decls`` tree) regrouped
+    for the forward: each RMSNorm as its f32 scale ``1 + w`` (LayerNorm
+    weights and biases as they are), an ``attn`` subtree as the
+    ``fuse_attn`` weights at the top level; every other subtree (``mlp``,
+    ``moe``, ``cross``, ``mamba``, ``core``) unchanged."""
+    out = {}
+    for name, a in bp.items():
+        if name == "attn":
+            out.update(fuse_attn(a, cfg))
+        elif name in NORMS and cfg.norm_style() == "rmsnorm":
+            out[name] = 1.0 + a.to(torch.float32)
+        else:
+            out[name] = a
+    return out
+
+
+def norm(x, p, cfg: ModelConfig, name: str):
+    """The block's norm ``name`` over ``fuse_block`` weights: LayerNorm for
+    the encoder-decoder, RMSNorm otherwise."""
+    if cfg.norm_style() == "layernorm":
+        return layer_norm(x, p[name], p[name + "_b"], cfg.norm_eps)
+    return rms_norm_scaled(x, p[name], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -258,3 +284,86 @@ def mlp_block(x, p):
     """SwiGLU MLP."""
     h = F.silu(x @ p["wi"]) * (x @ p["wg"])
     return h @ p["wo"]
+
+
+def gelu_mlp_block(x, p):
+    """The encoder-decoder's two-matrix MLP, with JAX's default (tanh)
+    GELU."""
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+
+
+def moe_route(x, router, cfg: ModelConfig, *, group_size: int = 512):
+    """Routing of ``moe_block``: top-k experts per token, and each
+    (token, k)'s slot in its expert, within groups of ``G = min(group_size,
+    S)`` tokens taken along each row (the sequence padded to a multiple of
+    G; padding tokens route and take slots too, after the row's real
+    ones).
+
+    x (B, S, D) -> dict with G, C (slots per expert: ``ceil(G*K/E *
+    capacity_factor)``), pad, gates (g, G, E) f32 router softmax, topi /
+    topw (g, G, K) (weights renormalised over the top k), pos (g, G, K)
+    the slot in flattened (token, k) order, keep (g, G, K) ``pos < C``.
+    """
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    G = min(group_size, S)
+    pad = (-S) % G
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    xg = x.reshape(-1, G, D)
+    # router logits in f32, as the jitted JAX function computes them (XLA
+    # keeps the bf16 product's f32 result for the f32 softmax; an eager
+    # one rounds it to bf16 first, and some tokens then route elsewhere)
+    logits = xg.to(torch.float32) @ router.to(torch.float32)
+    gates = torch.softmax(logits, dim=-1)
+    # a stable descending sort: ties go to the lower expert, as
+    # jax.lax.top_k breaks them
+    topw, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :K], topi[..., :K]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    C = max(1, int(math.ceil(G * K / E * cfg.capacity_factor)))
+    oh = F.one_hot(topi.reshape(topi.shape[0], G * K), E)   # (g, G*K, E)
+    # slot within the expert: the (token, k) pairs before it that chose it
+    pos = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1).reshape(topi.shape)
+    return {"G": G, "C": C, "pad": pad, "gates": gates, "topi": topi,
+            "topw": topw, "pos": pos, "keep": pos < C}
+
+
+def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512):
+    """Capacity-based top-k MoE: the JAX package's function, with the
+    one-hot dispatch and combine einsums replaced by index ops on the kept
+    (expert, slot) rows (an empty slot's expert output is exactly zero and
+    enters no token's sum, as in the einsums). Expert products run in the
+    compute dtype, one batched product per weight over every group's
+    slots; each token's K outputs are combined in f32 with the weights
+    rounded to the compute dtype, then rounded once.
+
+    Returns (out (B, S, D), aux) with the Switch load-balance loss aux
+    (f32 scalar)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    r = moe_route(x, p["router"], cfg, group_size=group_size)
+    G, C, pad = r["G"], r["C"], r["pad"]
+    xg = F.pad(x, (0, 0, 0, pad)).reshape(-1, G, D) if pad else \
+        x.reshape(-1, G, D)
+    g = xg.shape[0]
+    topi, pos, keep = r["topi"], r["pos"], r["keep"]
+    gi = torch.arange(g, device=x.device)[:, None, None].expand_as(topi)
+    si = torch.arange(G, device=x.device)[None, :, None].expand_as(topi)
+    # every (token, k) is written, a dropped one into a spare slot C that
+    # no product reads: no host sync on the number kept
+    xe = x.new_zeros((E, g, C + 1, D))
+    xe[topi, gi, torch.where(keep, pos, C)] = xg[gi, si]
+    xe = xe[:, :, :C].reshape(E, g * C, D)
+    h = F.silu(torch.bmm(xe, p["wi"])) * torch.bmm(xe, p["wg"])
+    eo = torch.bmm(h, p["wo"]).reshape(E, g, C, D)
+    w = (r["topw"] * keep).to(x.dtype).to(torch.float32)   # (g, G, K)
+    sel = eo[topi, gi, torch.clamp(pos, max=C - 1)].to(torch.float32)
+    y = (sel * w[..., None]).sum(2).to(x.dtype)
+    y = y.reshape(B, S + pad, D)[:, :S]
+    # Switch aux load-balance loss
+    oh = F.one_hot(topi, E).to(torch.float32)               # (g, G, K, E)
+    me = oh[..., 0, :] if K == 1 else oh.mean(2)
+    density, density_proxy = me.mean(1), r["gates"].mean(1)
+    aux = (density * density_proxy).sum(-1).mean() * (E ** 2) / (E * 1.0)
+    return y, aux.to(torch.float32)

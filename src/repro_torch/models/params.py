@@ -81,9 +81,15 @@ def _materialize(d: ParamDecl, gen: torch.Generator, dtype, device):
         return torch.full(d.shape, d.fill, dtype=dt, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (x * scale).to(device=device, dtype=dt)
+    # a stacked leaf (first axis "layers") is drawn one layer at a time into
+    # the preallocated leaf, so the f32 draw never holds more than one layer
+    # of it (phi3.5-moe's stacked experts are 40 GB in f32 at 24 layers)
+    out = torch.empty(d.shape, dtype=dt, device=device)
+    for part in (out if d.axes[:1] == ("layers",) else out[None]):
+        # no name keeps a layer's draw alive while the next one is made
+        part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                               device=gen.device).mul_(scale))
+    return out
 
 
 def init_params(decls, gen: torch.Generator, dtype=None, device="cpu"):

@@ -1,12 +1,13 @@
 """Unified multi-family model: parameter and cache declarations for every
-block type, and the forward of attention-only decoders — over the batched
-paged KV cache, over the dense slot cache, or with no cache.
+block type, and the forward — attention and MoE decoders over the batched
+paged KV cache; every family (attention, sliding window, MoE, Mamba,
+xLSTM, the whisper encoder-decoder) over the dense slot cache or with no
+cache.
 
 Layer stacking: the decoder pattern is decomposed into (period, repeats)
 stages; per stage, weights are stacked on a leading ``layers`` dim (the
 JAX package's layout, so weights carry over path for path), and the
-forward walks the repeats with a Python loop. The MoE, SSM, xLSTM and
-encoder-decoder forwards are listed in ROADMAP.md.
+forward walks the repeats with a Python loop.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from .config import (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN, ENC_ATTN, MAMBA,
                      MAMBA_MOE, MLSTM, MOE_BLOCKS, SLSTM, ModelConfig)
 from .params import ParamDecl, decl, init_params, tree_map, tree_map_decls
 from .rope import rope_tables
+from .ssm import mamba_block
+from .xlstm import mlstm_block, slstm_block
 
 # ---------------------------------------------------------------------------
 # Parameter declarations
@@ -284,28 +287,30 @@ def cast_params(params, dtype: torch.dtype):
                     else a, params, is_leaf=torch.is_tensor)
 
 
-def layer_params(params, cfg: ModelConfig, *, release: bool = False) -> list:
+def layer_params(params, cfg: ModelConfig, *, release: bool = False,
+                 key: str = "stages") -> list:
     """Per-stage, per-block lists of each layer's weights as the forward
     uses them: ``out[si][f"b{i}"][li]`` is layer ``li``'s ``fuse_block``
-    dict for ATTN and ATTN_L blocks (views of the stacked weights where the
-    layout allows, small copies where it regroups), its raw subtree for
-    other blocks. The executor builds them once at load.
+    dict (views of the stacked weights where the layout allows, small
+    copies where it regroups). The executor builds them once at load.
+    ``key="enc_stages"`` gives the encoder's (whisper).
 
     ``release`` drops each block's stacked q/k/v projections (and biases)
     from ``params`` once its layers are fused, so the fused copy does not
     double them (2.7 B parameters at gemma3-27b's widths); the forward
     then needs these lists."""
+    stages = cfg.stages() if key == "stages" else \
+        [((ENC_ATTN,), cfg.num_encoder_layers)]
     out = []
-    for (period, reps), stage in zip(cfg.stages(), params["stages"]):
+    for (period, reps), stage in zip(stages, params[key]):
         per = {}
-        for bi, bt in enumerate(period):
+        for bi, _bt in enumerate(period):
             stacked = stage[f"b{bi}"]
-            views = [tree_map(lambda a, li=li: a[li], stacked,
-                              is_leaf=torch.is_tensor) for li in range(reps)]
-            fuse = bt in (ATTN, ATTN_L)
-            per[f"b{bi}"] = [L.fuse_block(v, cfg) if fuse else v
-                             for v in views]
-            if fuse and release:
+            per[f"b{bi}"] = [
+                L.fuse_block(tree_map(lambda a, li=li: a[li], stacked,
+                                      is_leaf=torch.is_tensor), cfg)
+                for li in range(reps)]
+            if release and "attn" in stacked:
                 for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
                     stacked["attn"].pop(name, None)
         out.append(per)
@@ -316,79 +321,172 @@ def layer_params(params, cfg: ModelConfig, *, release: bool = False) -> list:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _ffn(x, bp, bt, cfg):
+    """The block's second half: norm ``ln2``, then the MoE, the
+    encoder-decoder's GELU MLP or the SwiGLU MLP, added to x; (x, aux)."""
+    h = L.norm(x, bp, cfg, "ln2")
+    if bt in MOE_BLOCKS:
+        out, aux = L.moe_block(h, bp["moe"], cfg)
+        return x + out, aux
+    if cfg.is_encoder_decoder:
+        return x + L.gelu_mlp_block(h, bp["mlp"]), None
+    return x + L.mlp_block(h, bp["mlp"]), None
+
+
 def _apply_paged_block(x, bp, bt, cfg, *, rope, store, ctx, attn_impl):
-    """Attention block over the paged cache: (x, store)."""
-    if bt != ATTN:
-        # ATTN_MOE's moe_block waits for its slice (ROADMAP.md, queue 1)
+    """ATTN or ATTN_MOE block over the paged cache: (x, store, aux)."""
+    if bt not in (ATTN, ATTN_MOE):
         raise NotImplementedError(
-            f"paged forward of block type {bt!r} is not ported yet "
-            "(ROADMAP.md: MoE moe_block)")
-    h = L.rms_norm_scaled(x, bp["ln1"], cfg.norm_eps)
+            f"paged cache protocol does not support block type {bt!r}")
+    h = L.norm(x, bp, cfg, "ln1")
     attn_out, store = L.paged_attention_block(
         h, bp, cfg, rope=rope, store=store, ctx=ctx, impl=attn_impl)
-    x = x + attn_out
-    h = L.rms_norm_scaled(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(h, bp["mlp"]), store
+    x, aux = _ffn(x + attn_out, bp, bt, cfg)
+    return x, store, aux
 
 
-def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache):
-    """ATTN or ATTN_L block with the dense slot cache of this layer (written
-    in place) or none."""
-    h = L.rms_norm_scaled(x, bp["ln1"], cfg.norm_eps)
+def _cross_attention(h, cp, cfg, cache, enc_out):
+    """DEC_ATTN's cross attention over the encoder output's K/V: computed
+    from ``enc_out`` when frames were given (and written into the slot's
+    ``ck``/``cv``), else read from the slot cache, as the JAX package
+    does (in serving no frames are passed, so a slot's zeroed cross K/V
+    are read)."""
+    if cache is not None and enc_out is None:
+        ck, cv = cache["ck"], cache["cv"]
+    else:
+        ck = torch.einsum("btd,dhk->bthk", enc_out, cp["wk"])
+        cv = torch.einsum("btd,dhk->bthk", enc_out, cp["wv"])
+        if cache is not None:
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+    q = torch.einsum("bsd,dhk->bshk", h, cp["wq"])
+    mask = torch.ones((h.shape[1], ck.shape[1]), dtype=torch.bool,
+                      device=h.device)
+    out = L.mha(q, ck.to(q.dtype), cv.to(q.dtype), mask, softcap=0.0)
+    return torch.einsum("bshk,hkd->bsd", out, cp["wo"])
+
+
+def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None):
+    """Attention-family block (ATTN, ATTN_L, ATTN_MOE, ENC_ATTN, DEC_ATTN)
+    with the dense slot cache of this layer (written in place) or none:
+    (x, aux)."""
+    h = L.norm(x, bp, cfg, "ln1")
     attn_out, _ = L.attention_block(
         h, bp, cfg, rope=rope, q_start=q_start, window=cfg.window_for(bt),
-        cache=cache)
+        cache=cache, is_causal=bt != ENC_ATTN)
     x = x + attn_out
-    h = L.rms_norm_scaled(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(h, bp["mlp"])
+    if bt == DEC_ATTN:
+        h = L.norm(x, bp, cfg, "ln_x")
+        x = x + _cross_attention(h, bp["cross"], cfg, cache, enc_out)
+    return _ffn(x, bp, bt, cfg)
+
+
+def _write_state(cache, new):
+    """Copy a recurrent block's new state into its slot cache, in place."""
+    if cache is not None:
+        for k, a in new.items():
+            cache[k].copy_(a)
+
+
+def _apply_block(x, bp, bt, cfg, *, rope, q_start, cache, enc_out):
+    """One block on the dense slot cache or with none: (x, aux or None)."""
+    if bt in (MAMBA, MAMBA_MOE):
+        h = L.norm(x, bp, cfg, "ln1")
+        state = None if cache is None else \
+            {k: cache[k] for k in ("conv", "ssm")}
+        out, new = mamba_block(h, bp["mamba"], cfg, cache=state)
+        _write_state(state, new)
+        return _ffn(x + out, bp, bt, cfg)
+    if bt in (MLSTM, SLSTM):
+        block = mlstm_block if bt == MLSTM else slstm_block
+        out, new = block(L.norm(x, bp, cfg, "ln1"), bp["core"], cfg,
+                         cache=cache)
+        _write_state(cache, new)
+        return x + out, None
+    return _apply_attnish(x, bp, bt, cfg, rope=rope, q_start=q_start,
+                          cache=cache, enc_out=enc_out)
 
 
 def dense_supported(cfg: ModelConfig) -> bool:
-    """True when the port runs this decoder on the dense slot cache or
-    with no cache: attention-only blocks, global or sliding-window. MoE,
-    SSM, xLSTM and the encoder-decoder wait for their slice (ROADMAP.md,
-    queue 1)."""
-    return not cfg.is_encoder_decoder and all(
-        bt in (ATTN, ATTN_L) for period, _ in cfg.stages() for bt in period)
+    """True when the port runs this model on the dense slot cache or with
+    no cache: every block type of the ten archs (attention, sliding
+    window, MoE, Mamba, xLSTM and the encoder-decoder)."""
+    known = {ATTN, ATTN_L, ATTN_MOE, MAMBA, MAMBA_MOE, MLSTM, SLSTM,
+             DEC_ATTN}
+    return all(bt in known for period, _ in cfg.stages() for bt in period)
+
+
+def _sinusoid_at(positions, D: int):
+    """positions (B, S) -> (B, S, D) sinusoidal embedding, f32."""
+    pos = positions.to(torch.float32)[..., None]
+    dim = torch.arange(0, D, 2, dtype=torch.float32, device=positions.device)
+    ang = pos / torch.pow(torch.tensor(10000.0, device=positions.device),
+                          dim / D)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _final_norm(x, params, cfg, suffix=""):
+    if cfg.norm_style() == "layernorm":
+        return L.layer_norm(x, params["final_norm" + suffix],
+                            params["final_norm_b" + suffix], cfg.norm_eps)
+    return L.rms_norm(x, params["final_norm" + suffix], cfg.norm_eps)
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """Whisper encoder over stub conv-frontend frame embeddings (B, T, D):
+    sinusoidal positions, the bidirectional ENC_ATTN blocks (attention
+    through ``mha``), the final LayerNorm."""
+    B, T, D = frames.shape
+    pos = torch.arange(T, device=frames.device)[None]
+    x = frames + _sinusoid_at(pos, D).to(frames.dtype)
+    rope = rope_tables(pos, cfg.hd, cfg.rope_theta, cfg.rope_style)
+    for bp in layer_params(params, cfg, key="enc_stages")[0]["b0"]:
+        x, _ = _apply_attnish(x, bp, ENC_ATTN, cfg, rope=rope, q_start=0,
+                              cache=None)
+    return _final_norm(x, params, cfg, "_enc")
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
-            mm_embeds=None, cache=None, q_start=0, last_only=False,
-            last_pos=None, attn_impl="gather", layers=None):
+            mm_embeds=None, enc_frames=None, cache=None, q_start=0,
+            last_only=False, last_pos=None, attn_impl="gather", layers=None):
     """Unified forward.
 
     tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope; default
       ``q_start + arange(S)``.
     mm_embeds: (B, N_mm, D) stub patch/frame embeddings (VLM) — replace the
       first N_mm token embeddings.
+    enc_frames: (B, T_enc, D) stub audio frames (whisper): encoded, and the
+      decoder's cross attention reads them (writing their K/V into a dense
+      cache); without them it reads the cache's ``ck``/``cv``.
     params: the ``model_decls`` tree, already in the compute dtype (see
       ``cast_params``); ``layers`` optionally gives its ``layer_params``
       so a call does not regroup the weights again.
     cache: None (the whole sequence, queries at ``q_start + i``); the
       dense slot cache from ``init_cache`` (``"stages"`` and ``"idx"``;
-      its buffers are written in place); OR the paged cache of the batched
-      serving path — a dict with "stages" (per-stage {"b<i>":
-      PagedStackStore}, written in place), "block_table" (B, max_pages),
-      "lengths" (B,) context written per row, and "new_lens" (B,) valid
-      new tokens per row. attn_impl ('gather' | 'kernel') picks the paged
-      attention backend (see layers.paged_attention_block); dense and
-      cache-less attention always goes through
-      ``kernels.ops.prefill_attention``.
+      its buffers — attention K/V, Mamba and xLSTM state — are written in
+      place); OR the paged cache of the batched serving path — a dict
+      with "stages" (per-stage {"b<i>": PagedStackStore}, written in
+      place), "block_table" (B, max_pages), "lengths" (B,) context written
+      per row, and "new_lens" (B,) valid new tokens per row (ATTN and
+      ATTN_MOE decoders only, ``paged_supported``). attn_impl ('gather' |
+      'kernel') picks the paged attention backend (see
+      layers.paged_attention_block); dense and cache-less causal
+      attention always goes through ``kernels.ops.prefill_attention``.
     last_pos: (B,) int — gather this position per row before the lm_head
       (ragged packed prefill: only each row's last real token needs
       logits). last_only: the final position only (serving prefill).
-    Returns (logits (B,S,V), new_cache_or_None, aux_loss); a dense
+    Returns (logits (B,S,V), new_cache_or_None, aux_loss): the MoE
+    load-balance loss summed over layers (f32 scalar); a dense
     ``new_cache`` shares the cache's buffers, with ``idx`` advanced by S.
     """
     paged = cache is not None and "block_table" in cache
     if paged and not paged_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: block pattern outside the paged protocol "
-            "(ROADMAP.md: SSM/xLSTM/whisper, sliding window)")
-    if not paged and not dense_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: only attention-only decoders run on the dense "
-            "cache or without one (ROADMAP.md: MoE; SSM/xLSTM/whisper)")
+            "(sliding window, SSM/xLSTM state, cross attention: the dense "
+            "slot cache)")
+    if not dense_supported(cfg):
+        raise ValueError(f"{cfg.name}: unknown block type in {cfg.stages()}")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -398,9 +496,16 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     if mm_embeds is not None:
         # stub patch/frame embeddings replace the first N_mm token embeds
         x[:, :mm_embeds.shape[1]] = mm_embeds.to(x.dtype)
+    if cfg.is_encoder_decoder:
+        x = x + _sinusoid_at(positions[..., 0] if positions.ndim == 3
+                             else positions, cfg.d_model).to(x.dtype)
+    enc_out = None
+    if cfg.is_encoder_decoder and enc_frames is not None:
+        enc_out = encode(params, cfg, enc_frames.to(x.dtype))
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_style)
     if layers is None:
         layers = layer_params(params, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if paged:
         bt_, lengths, new_lens = (cache["block_table"], cache["lengths"],
                                   cache["new_lens"])
@@ -414,11 +519,13 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             for li in range(reps):
                 for bi, bt in enumerate(period):
                     name = f"b{bi}"
-                    x, stores[name] = _apply_paged_block(
+                    x, stores[name], a = _apply_paged_block(
                         x, layers[si][name][li], bt, cfg, rope=rope,
                         store=stores[name],
                         ctx=dict(ctx, slots=slots[name], layer=li),
                         attn_impl=attn_impl)
+                    if a is not None:
+                        aux = aux + a
         new_cache = {"stages": cache["stages"], "block_table": bt_,
                      "lengths": ctx["totals"], "new_lens": new_lens}
     else:
@@ -432,8 +539,11 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                         blk = {k: a[li] for k, a in
                                cache["stages"][si][name].items()}
                         blk["idx"] = idx
-                    x = _apply_attnish(x, layers[si][name][li], bt, cfg,
-                                       rope=rope, q_start=q_start, cache=blk)
+                    x, a = _apply_block(x, layers[si][name][li], bt, cfg,
+                                        rope=rope, q_start=q_start,
+                                        cache=blk, enc_out=enc_out)
+                    if a is not None:
+                        aux = aux + a
         new_cache = None if cache is None else {
             "stages": cache["stages"],
             "idx": torch.tensor(idx + S, dtype=torch.int32)}
@@ -444,7 +554,7 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
         x = torch.gather(x, 1, idx_)
     elif last_only:
         x = x[:, -1:]  # serving prefill: lm_head on the final position only
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _final_norm(x, params, cfg)
     head = embed.T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
-    return logits, new_cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, new_cache, aux

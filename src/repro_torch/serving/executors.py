@@ -10,10 +10,11 @@ ModelExecutor — runs the real torch model, on the GPU by default. The
 default batched mode executes each engine iteration as one packed ragged
 prefill step plus one fused decode step over the whole running set, with
 per-layer KV in flat paged stores indexed by the engine allocator's block
-tables (DESIGN.md §Batched execution path). ``legacy=True`` — and every
-arch outside the paged protocol (sliding-window gemma3) — runs one
-``forward`` per request over a dense per-request slot cache: the
-token-parity oracle of the batched path. On CUDA, attention goes through
+tables (DESIGN.md §Batched execution path): the attention and MoE
+decoders. ``legacy=True`` — and every arch outside the paged protocol
+(gemma3's sliding window, jamba's Mamba layers, xLSTM, the whisper
+encoder-decoder) — runs one ``forward`` per request over a dense
+per-request slot cache: the token-parity oracle of the batched path. On CUDA, attention goes through
 the hand-written kernels (paged decode and prefill; dense prefill).
 """
 from __future__ import annotations
@@ -300,15 +301,17 @@ class ModelExecutor:
     dense slot cache per request (``max_slots`` of them, at ``max_len``,
     updated in place and zeroed in place when a slot is released); it is
     the token-parity oracle of the batched path and the path of archs the
-    paged protocol does not take (sliding-window attention). Only the
-    last position's logits are computed, the only ones it reads.
+    paged protocol does not take (sliding-window attention, recurrent
+    state, cross attention). Only the last position's logits are
+    computed, the only ones it reads. A released slot is zeroed whole, as
+    the JAX executor zeroes it: the recurrent fills (an sLSTM's ``n`` of
+    ones, an mLSTM's ``m`` of -1e30) become zeros there too.
 
     Greedy tokens (argmax, fed back as the next decode input) are emitted
     into ``emitted``. Every timed region ends in a device synchronise, so
     the profile and the engine clock measure device work, not launches.
 
-    Not ported yet (ROADMAP.md): MoE, SSM, xLSTM and encoder-decoder
-    archs, and the page-chain migration payloads.
+    Not ported yet (ROADMAP.md): the page-chain migration payloads.
     """
 
     # finished-request token lists retained for post-run inspection
@@ -327,10 +330,6 @@ class ModelExecutor:
         if config is None:
             config = ExecutorConfig()
         config = config.resolved()
-        if not T.dense_supported(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention-only archs (global or sliding "
-                "window) are ported (ROADMAP.md: MoE; SSM/xLSTM/whisper)")
         self.torch = torch
         self.T = T
         self.device = resolve_device(device)

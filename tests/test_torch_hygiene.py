@@ -40,6 +40,31 @@ def test_no_jax_and_no_jax_package_imports(path):
     assert not hits, f"{path} imports JAX or the JAX package"
 
 
+def test_every_model_module_is_checked():
+    """The scan above reaches each module of the port's model, the
+    recurrent blocks and the launcher included."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"models/layers.py", "models/ssm.py", "models/xlstm.py",
+            "models/transformer.py", "models/params.py",
+            "launch/serve.py", "serving/executors.py"} <= names
+
+
+def test_new_model_modules_import_alone():
+    """``models/ssm.py`` and ``models/xlstm.py`` load in a fresh process
+    without JAX or the JAX package."""
+    code = ("import sys\n"
+            "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def _normalized_ast(path: Path, rename: bool) -> str:
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

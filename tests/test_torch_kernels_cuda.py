@@ -2,8 +2,9 @@
 version, on the GPU: odd shapes the serving path does not reach (MQA,
 G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
 queries), the decode kernels' split over keys (rows ending on a slice
-boundary, all-empty rows), and the prefill kernels at the serving widths
-(qwen2-vl's paged chunks, gemma3's dense chunks). Marked
+boundary, all-empty rows), and the kernels at the serving widths
+(qwen2-vl's and phi3.5-moe's paged shapes, gemma3's, whisper-base's and
+jamba's dense ones). Marked
 ``gpu``; without a CUDA device every test skips. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
@@ -59,6 +60,8 @@ GPU_DECODE = [  # (lens, H, KV, hd, page, P, softcap)
     ([7, 30, 64, 65], 4, 2, 64, 4, 64, 30.0),
     ([50, 3], 8, 1, 72, 8, 32, 0.0),          # hd % 8 != 0: scalar path
     ([129, 250], 16, 1, 256, 16, 64, 0.0),    # G = 16, hd = 256
+    # phi3.5-moe's decode shapes: GQA group 4
+    ([0, 1, 17, 300, 2048], 32, 8, 128, 16, 256, 0.0),
 ]
 GPU_PREFILL = [  # (q_start, new_lens, Sq, H, KV, hd, page, P, softcap)
     ([0, 100, 7, 0], [200, 64, 130, 0], 256, 12, 2, 128, 16, 128, 0.0),
@@ -70,6 +73,8 @@ GPU_PREFILL = [  # (q_start, new_lens, Sq, H, KV, hd, page, P, softcap)
      0.0),
     ([13, 0], [7, 5], 8, 12, 2, 128, 16, 16, 0.0),   # Sq * G < 64 rows
     ([40, 3], [100, 61], 100, 16, 1, 64, 16, 32, 0.0),  # G = 16, mid-page
+    # phi3.5-moe's serving widths: GQA group 4, a 512-token chunk
+    ([0, 700, 0], [512, 200, 0], 512, 32, 8, 128, 16, 512, 0.0),
 ]
 
 
@@ -181,6 +186,11 @@ GPU_DENSE = [  # (B, Sq, n_keys, Smax, H, KV, hd, q_start, window, softcap)
     (1, 512, 2048, 2048, 32, 16, 128, 1536, 1024, 0.0),
     (2, 100, 1100, 2048, 32, 16, 128, 1000, 0, 0.0),  # B = 2, n_keys < Smax
     (1, 70, 70, 70, 6, 1, 128, 0, 0, 0.0),          # G = 6, two dead rows
+    # whisper-base's decoder self-attention: H = KV = 8, hd 64
+    (1, 512, 1000, 2048, 8, 8, 64, 488, 0, 0.0),
+    (2, 300, 300, 300, 8, 8, 64, 0, 0, 0.0),         # cache-less
+    # jamba's attention layer: G = 8, a chunk
+    (1, 512, 1536, 2048, 64, 8, 128, 1024, 0, 0.0),
 ]
 
 GPU_DENSE_DECODE = [  # the decode route: Sq * G <= 16, split over keys
@@ -193,6 +203,8 @@ GPU_DENSE_DECODE = [  # the decode route: Sq * G <= 16, split over keys
     (1, 1, 1500, 2048, 32, 16, 128, 1499, 0, 50.0),    # softcap
     (2, 1, 1000, 1024, 8, 2, 64, 999, 0, 0.0),         # hd 64
     (2, 4, 900, 1024, 8, 2, 64, 896, 700, 0.0),        # Sq * G = 16
+    (1, 1, 1500, 2048, 8, 8, 64, 1499, 0, 0.0),        # whisper, hd 64
+    (1, 1, 2000, 2048, 64, 8, 128, 1999, 0, 0.0),      # jamba, G = 8
 ]
 
 

@@ -151,7 +151,8 @@ def _steps(vocab):
 
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "chatglm3-6b",
+                                  "phi3.5-moe-42b-a6.6b", "grok-1-314b"])
 def test_paged_forward_matches_jax(arch, dt, impl):
     ref = _jax_run(arch, dt)
     jc = jconfigs.get_reduced(arch)
@@ -172,14 +173,65 @@ def test_paged_forward_matches_jax(arch, dt, impl):
 
 
 def test_forward_refuses_what_is_not_ported():
-    """A cache-less forward of xLSTM (and of MoE and whisper) still waits
-    for its slice; attention-only decoders run without a cache."""
-    for arch in ("xlstm-125m", "phi3.5-moe-42b-a6.6b", "whisper-base"):
+    """Every family runs without a cache and on the dense cache; the
+    paged forward still refuses the archs outside the paged protocol
+    (recurrent state, cross attention, sliding window)."""
+    for arch in ("xlstm-125m", "phi3.5-moe-42b-a6.6b", "whisper-base",
+                 "jamba-1.5-large-398b", "qwen2-vl-2b"):
         tc = tconfigs.get_reduced(arch)
         tp = init_params(TT.model_decls(tc), torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.forward(tp, tc, torch.zeros((1, 4), dtype=torch.int32))
-    tc = tconfigs.get_reduced("qwen2-vl-2b")
-    tp = init_params(TT.model_decls(tc), torch.Generator().manual_seed(0))
-    lg, cache, _ = TT.forward(tp, tc, torch.zeros((1, 4), dtype=torch.int32))
-    assert lg.shape == (1, 4, tc.vocab_size) and cache is None
+        kw = {}
+        if tc.is_encoder_decoder:
+            kw["enc_frames"] = torch.zeros((1, tc.encoder_seq, tc.d_model))
+        lg, cache, aux = TT.forward(tp, tc, torch.zeros((1, 4),
+                                                        dtype=torch.int32),
+                                    **kw)
+        assert lg.shape == (1, 4, tc.vocab_size) and cache is None
+        assert torch.isfinite(lg.float()).all()
+        assert (aux > 0) == bool(tc.num_experts)     # the MoE balance loss
+    for arch in ("xlstm-125m", "whisper-base", "jamba-1.5-large-398b",
+                 "gemma3-27b"):
+        tc = tconfigs.get_reduced(arch)
+        assert not TT.paged_supported(tc) and TT.dense_supported(tc)
+        tp = init_params(TT.model_decls(tc), torch.Generator().manual_seed(0))
+        cache = {"stages": [], "block_table": torch.zeros((1, 1),
+                                                          dtype=torch.int32),
+                 "lengths": torch.zeros(1, dtype=torch.int32),
+                 "new_lens": torch.ones(1, dtype=torch.int32)}
+        with pytest.raises(NotImplementedError, match="paged protocol"):
+            TT.forward(tp, tc, torch.zeros((1, 1), dtype=torch.int32),
+                       cache=cache)
+
+
+def test_stacked_leaves_drawn_layer_by_layer():
+    """A stacked leaf (first axis "layers") is drawn one layer at a time
+    into its preallocated leaf: the declared shape and dtype, the declared
+    scale in every layer, different draws per layer, and the same weights
+    for the same seed. An unstacked leaf is one draw."""
+    from repro_torch.models import params as P
+    decls = {"w": P.decl((3, 64, 512), ("layers", "embed", "mlp")),
+             "r": P.decl((4, 256, 8), ("layers", "embed", None), scale=0.02),
+             "e": P.decl((100, 64), ("vocab", "embed"), scale=0.5)}
+    a = init_params(decls, torch.Generator().manual_seed(5),
+                    dtype=torch.bfloat16)
+    b = init_params(decls, torch.Generator().manual_seed(5),
+                    dtype=torch.bfloat16)
+    for k, d in decls.items():
+        assert a[k].shape == d.shape and a[k].dtype == torch.bfloat16
+        assert torch.equal(a[k], b[k])
+    for k, std in (("w", 1 / 8), ("r", 0.02)):
+        for li in range(decls[k].shape[0]):
+            got = a[k][li].float().std().item()
+            assert abs(got - std) < 0.05 * std, (k, li, got)
+        assert not torch.equal(a[k][0], a[k][1])
+    assert abs(a["e"].float().std().item() - 0.5) < 0.05 * 0.5
+    c = init_params(decls, torch.Generator().manual_seed(6),
+                    dtype=torch.bfloat16)
+    assert not torch.equal(a["w"], c["w"])
+    # leaves in key order: e as one draw, then r layer by layer
+    g = torch.Generator().manual_seed(5)
+    e = torch.randn((100, 64), generator=g) * 0.5
+    assert torch.equal(a["e"], e.to(torch.bfloat16))
+    torch.randn((256, 8), generator=g)                # r[0]
+    r1 = torch.randn((256, 8), generator=g) * 0.02
+    assert torch.equal(a["r"][1], r1.to(torch.bfloat16))
