@@ -35,26 +35,44 @@ Phases, each printing its own lines:
      prefill and one decode step through the paged cache; each attention
      call of that forward runs the kernel and its plain version on the
      same inputs, which must agree;
-  7. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
+  7. fleet migration: three replicas of the served qwen2-vl-2b (weights
+     shared, each with its own paged stores and allocator): a video of 784
+     mm units and 32 text tokens prefills on the source until it decodes,
+     its 49-page chain migrates with the payload bytes, the target
+     finishes it; the target's pages must hold the bytes the source sent,
+     both paged kernels must launch on the target, no page may stay in
+     use, and the tokens (and the first one's logits) must equal, bit for
+     bit, those of an oracle replica that ran the same step shapes (the
+     chain published by two earlier requests with the same video, then
+     the same rid claims it and prefills the same 32-token residual);
+  8. fleet serve: a Fleet of three replicas, least-loaded routing, 16 MH
+     requests at 4 req/s with duplicates and shared prefixes; replica 0
+     drains from request 6's arrival at the first tick it holds a
+     prefilled page, replica 2 is killed at request 10's arrival and
+     restarts 1 s later warmed from a peer; the conservation audit of
+     benchmarks/fleet_tolerance.py must read zero, every request must
+     finish, the drain must migrate payload pages and the warm import ship
+     payload;
+  9. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
      4 dense slots, policy tcm), which build_stack's "real" mode puts on
      the dense-slot path (sliding window), on 8 MH requests; every request
      must finish with tokens, prefill_attention must have launched and
      neither paged kernel, JAX must not be loaded; peak device memory;
-  8. gemma3 model check: the served weights cut to their first 6 layers
+ 10. gemma3 model check: the served weights cut to their first 6 layers
      (5 local, 1 global), a 1536-token prompt and one decode step through
      the dense cache, attention through the kernel against its plain
      version;
-  9. phi3.5-moe serve: full width (d_model 4096, 16 experts top-2, GQA
+ 11. phi3.5-moe serve: full width (d_model 4096, 16 experts top-2, GQA
      32/8) at 24 of its 32 layers (the bf16 weights of all 32 fill the
      card), random weights, through launch.serve.build_stack on the
      batched paged path (max_len 4096), 12 MH requests at 2 req/s; both
      paged kernels must have launched;
- 10. phi3.5-moe model check: a 2-layer cut of the served weights, each
+ 12. phi3.5-moe model check: a 2-layer cut of the served weights, each
      attention call of its paged forward against the kernel's plain
      version, as in 6; then layer 0's moe_block over a 512-token chunk in bf16 on
      the card against f32 on the CPU (routing identical, each token within
      2e-2 of its rms), with the tokens dropped by capacity;
- 11. jamba serve: full width (d_model 8192, GQA 64/8, 16 experts top-2,
+ 13. jamba serve: full width (d_model 8192, GQA 64/8, 16 experts top-2,
      d_ff 24576, Mamba DI 16384) at 5 of its 72 layers (the published
      pattern's first five: Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention;
      one whole 8-layer period does not fit the card), random weights,
@@ -63,13 +81,14 @@ Phases, each printing its own lines:
      512-token prefill and 8 decode steps, in f32 on the card against f32
      on the CPU (within 1e-4), and in bf16 on the card no further from
      that reference than bf16 on the CPU is;
- 12. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
+ 14. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
      width and depth, on the dense-slot path (8 and 6 MH requests);
      whisper must launch prefill_attention, xlstm no kernel;
- 13. launches per model, a JSON line of every kernel's numbers (launches
-     summed over every serve phase), then the device JSON line last.
+ 15. launches per model, a JSON line of every kernel's numbers (launches
+     summed over every serve and fleet phase), then the device JSON line
+     last.
 
-Each serve phase of 9-12 prints TTFT per class, tokens/s, peak device
+Each serve phase of 11-14 prints TTFT per class, tokens/s, peak device
 memory, its launches, and the host enqueue, enqueue-plus-device and
 device (profiler) time of a decode step (and, for phi3.5-moe, of a
 512-token prefill step).
@@ -537,7 +556,7 @@ def serve_phase(torch, n_requests: int, breakdown: bool):
             fail(f"serve: kernel {name} never launched on the main path")
     if "jax" in sys.modules:
         fail("serve: jax was imported")
-    return executor, counts
+    return executor, counts, classifier, engine_cfg
 
 
 class PlainOps:
@@ -627,6 +646,439 @@ def model_check(torch, executor, label, depth=2):
           f"max|logit| {b.abs().max().item():.4f}, argmax agreement "
           f"{agree:.2f}{moe}", flush=True)
     checked.gate(f"{label} model check", 2 * depth)
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the fleet tier over replicas of the served qwen2-vl-2b
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+MIGRATION_MAX_STEPS = (200, 2000)   # to RUNNING on the source; to the end
+# the 16-request fleet run takes ~1200 co-sim steps (one engine step
+# each); the bound stops the reference engine's two-request livelock
+# within a minute or two
+FLEET_MAX_STEPS = 6_000
+
+
+def replica(executor):
+    """A replica of the served model: its weights (params and fused layers)
+    shared, its own paged stores, allocator and per-request state."""
+    from repro_torch.serving.executors import ModelExecutor
+    return ModelExecutor(executor.cfg, executor.config,
+                         device=executor.device, params=executor.params,
+                         layers=executor.layers)
+
+
+class PayloadSpy:
+    """Counts and times a replica's page-payload exports and imports (each
+    ends in a host copy, so the wall time is the transfer's), and keeps
+    what was imported: (pages, blobs) per call."""
+
+    def __init__(self, executors):
+        self.seconds = {"export": 0.0, "import": 0.0}
+        self.bytes = {"export": 0, "import": 0}
+        self.imports = []
+        for ex in executors:
+            ex.export_page_payload = self._wrap(ex.export_page_payload,
+                                                "export")
+            ex.import_page_payload = self._wrap(ex.import_page_payload,
+                                                "import")
+
+    def _wrap(self, fn, kind):
+        def call(pages, *payloads):
+            t = time.perf_counter()
+            out = fn(pages, *payloads)
+            self.seconds[kind] += time.perf_counter() - t
+            blobs = out if kind == "export" else payloads[0]
+            self.bytes[kind] += sum(len(b) for b in blobs)
+            if kind == "import":
+                self.imports.append((list(pages), list(blobs)))
+            return out
+        return call
+
+    def line(self) -> str:
+        return (f"payload exported {self.bytes['export']} bytes in "
+                f"{self.seconds['export']:.4f}s, imported "
+                f"{self.bytes['import']} bytes in "
+                f"{self.seconds['import']:.4f}s")
+
+
+def step_log(executor):
+    """Record every engine iteration's call shape on ``executor``: the
+    prefill rows (rid, tokens already prefilled, chunk) and the decode
+    rids."""
+    log = []
+    run = executor.run_iteration
+
+    def logged(prefill_work, decode_reqs, encode_work):
+        log.append((tuple((r.rid, r.prefilled, c) for r, c in prefill_work),
+                    tuple(r.rid for r in decode_reqs)))
+        return run(prefill_work, decode_reqs, encode_work)
+    executor.run_iteration = logged
+    return log
+
+
+def keep_prefill_logits(executor):
+    """Keep, for each prefill forward (more than one token) of the
+    executor, the logits of row 0's last position: after a request's last
+    prefill chunk, the logits its first token was drawn from. Returns the
+    list they are appended to."""
+    kept = []
+    T = executor.T
+
+    class Keeping:
+        def __getattr__(self, name):
+            return getattr(T, name)
+
+        @staticmethod
+        def forward(params, cfg, tokens, **kw):
+            out = T.forward(params, cfg, tokens, **kw)
+            if tokens.shape[1] > 1:
+                kept.append(out[0][0, -1].float().clone())
+            return out
+    executor.T = Keeping()
+    return kept
+
+
+def rid_steps(log, rid, as_rid=None):
+    """The iterations of ``log`` that ran ``rid`` (renamed ``as_rid``)."""
+    out = []
+    for prefill, decode in log:
+        p = tuple((as_rid or r, s, c) for r, s, c in prefill if r == rid)
+        d = sum(r == rid for r in decode)
+        if p or d:
+            out.append((p, d))
+    return out
+
+
+def run_until(engine, req, pred, max_steps, what):
+    pending = [req]
+    for _ in range(max_steps):
+        pending = engine.step(pending)
+        if pred():
+            return
+    fail(f"{what}: not done after {max_steps} engine steps (state "
+         f"{req.state.value})")
+
+
+def fleet_video(rid):
+    """tests/test_fleet.py's video: 784 mm units (49 full shareable pages
+    of 16) and a 32-token private text tail, 64 output tokens; every
+    request of the phase carries the same video."""
+    from repro_torch.serving.request import Modality, Request
+    return Request(rid=rid, modality=Modality.VIDEO, arrival=0.0,
+                   text_tokens=32, mm_units=784, prompt_tokens=816,
+                   output_tokens=64, mm_hash="fleet-video")
+
+
+def fleet_migration_phase(torch, executor, classifier, engine_cfg):
+    """The full-width counterpart of benchmarks/fleet_tolerance.py's
+    real-migration parity: three replicas of the served model (oracle,
+    source, target). The video prefills on the source until it decodes,
+    ``migrate`` ships its 49-page chain with the payload bytes, and the
+    target finishes it.
+
+    Gates: status ``migrated`` and 49 pages imported; the target's pages
+    export the bytes the source sent; the request finished; no used page
+    left on source or target; both paged kernels launched on the target;
+    the tokens, and the logits of the first, equal, bit for bit, those of
+    an oracle run on the same step shapes: the oracle prefilled the same
+    video twice alone (so its chain is published, written in the source's
+    chunks), then the same rid claims the same 784 tokens and prefills
+    the same 32-token residual. Reported only: how many tokens an
+    unmigrated oracle that prefills the whole prompt shares with the
+    migrated run, how far its first-token logits are from the migrated
+    run's and from its own admission-time whole-prompt prefill's (other
+    call shapes round otherwise, and with these random weights a
+    rounding difference can move the logits by their own size).
+    Returns the phase's kernel launches."""
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.migration import MigrationConfig, migrate
+    from repro_torch.serving.request import State
+
+    def engine(ex):
+        return Engine(make_policy("tcm"), ex, classifier, engine_cfg)
+
+    ops.reset_launch_counts()
+    ex_o, ex_s, ex_d = (replica(executor) for _ in range(FLEET_REPLICAS))
+    logs = {name: step_log(ex) for name, ex in
+            (("oracle", ex_o), ("source", ex_s), ("target", ex_d))}
+    first = {name: keep_prefill_logits(ex)
+             for name, ex in (("oracle", ex_o), ("target", ex_d))}
+    spy = PayloadSpy([ex_s, ex_d])
+    n_steps, n_end = MIGRATION_MAX_STEPS
+    rid = "fleet-mig"
+
+    # the unmigrated, unclaimed oracle: the whole prompt on one replica
+    plain_req = fleet_video(rid)
+    run_until(engine(ex_o), plain_req, lambda: plain_req.is_terminal, n_end,
+              "fleet migration, unclaimed oracle")
+    plain_tokens = list(ex_o.emitted[rid])
+    # its admission-time isolated run (one whole-prompt prefill) and its
+    # engine prefill's last chunk: the same prompt at other shapes
+    iso_logits, plain_logits = first["oracle"][0], first["oracle"][-1]
+    first["oracle"].clear()
+    ex_o.evict_request(rid)
+
+    # the source: prefill until it decodes, then migrate
+    src, dst = engine(ex_s), engine(ex_d)
+    req = fleet_video(rid)
+    run_until(src, req, lambda: req.state is State.RUNNING, n_steps,
+              "fleet migration, source prefill")
+    prefilled = req.prefilled
+    t0 = time.perf_counter()
+    res = migrate(src, dst, req, src.now, MigrationConfig())
+    t_mig = time.perf_counter() - t0
+    print(f"fleet migration: prefilled {prefilled} of {req.prompt_tokens} "
+          f"on the source, status {res.status}, {res.pages_imported} pages "
+          f"imported ({res.pages_deduped} deduped), {res.chunks_sent} chunks "
+          f"in {t_mig:.4f}s; {spy.line()}", flush=True)
+    if res.status != "migrated" or res.pages_imported != 49:
+        fail(f"fleet migration: status {res.status}, "
+             f"{res.pages_imported} pages imported (want migrated, 49)")
+    (pages, blobs), = spy.imports
+    sent = [r.payload for r in res.delivered]
+    if blobs != sent or ex_d.export_page_payload(pages) != sent:
+        fail("fleet migration: the target's pages do not hold the bytes "
+             "the source sent")
+    print(f"fleet migration: {len(pages)} pages of {len(sent[0])} bytes "
+          f"each byte-identical on the target", flush=True)
+    before = ops.launch_counts()
+    run_until(dst, req, lambda: req.is_terminal, n_end,
+              "fleet migration, target")
+    after = ops.launch_counts()
+    moved = {k: after[k] - before[k] for k in after}
+    tokens = list(ex_d.emitted.get(rid, []))
+    if req.state is not State.FINISHED or len(tokens) != req.output_tokens:
+        fail(f"fleet migration: {req.state.value} with {len(tokens)} tokens")
+    if ex_d.export_page_payload(pages) != sent:
+        fail("fleet migration: the imported pages changed while serving")
+    used = (src.allocator.used_pages, dst.allocator.used_pages)
+    if used != (0, 0):
+        fail(f"fleet migration: used pages left (source, target) {used}")
+    for a in (src.allocator, dst.allocator):
+        a.check_invariants()
+    for name in ("paged_attention", "paged_prefill_attention"):
+        if moved[name] <= 0:
+            fail(f"fleet migration: {name} never launched on the target")
+
+    # the gated oracle: the same video twice alone (its chain published,
+    # written in the source's chunks), then the same rid claims it
+    eng_o = engine(ex_o)
+    start = len(logs["oracle"])
+    for i in range(2):
+        carrier = fleet_video(f"fleet-carrier{i}")
+        run_until(eng_o, carrier, lambda: carrier.is_terminal, n_end,
+                  "fleet migration, oracle carrier")
+    oracle_req = fleet_video(rid)
+    run_until(eng_o, oracle_req, lambda: oracle_req.is_terminal, n_end,
+              "fleet migration, oracle")
+    oracle_tokens = list(ex_o.emitted[rid])
+    shapes = {
+        "source": rid_steps(logs["source"], rid, "r"),
+        "carrier": rid_steps(logs["oracle"][start:], "fleet-carrier1", "r"),
+        "target": rid_steps(logs["target"], rid),
+        "oracle": rid_steps(logs["oracle"][start:], rid)}
+    prefill_shapes = {k: [p for p, _d in v if p] for k, v in shapes.items()}
+    print(f"fleet migration: prefill chunks (rid, start, tokens): source "
+          f"{prefill_shapes['source']}, oracle's carrier "
+          f"{prefill_shapes['carrier']}; target "
+          f"{prefill_shapes['target']}, oracle {prefill_shapes['oracle']}; "
+          f"claimed {req.cached_prefix_tokens} (target) and "
+          f"{oracle_req.cached_prefix_tokens} (oracle)", flush=True)
+    if prefill_shapes["source"] != prefill_shapes["carrier"] or \
+            shapes["target"] != shapes["oracle"] or \
+            req.cached_prefix_tokens != oracle_req.cached_prefix_tokens:
+        fail("fleet migration: the oracle did not take the migrated run's "
+             "step shapes")
+    counts = ops.launch_counts()
+    same = sum(a == b for a, b in zip(plain_tokens, tokens))
+    part = next((i for i, (a, b) in enumerate(zip(plain_tokens, tokens))
+                 if a != b), None)
+    # the logits of the first token: the 32-token residual's last position
+    # (target, shape-matched oracle) and the whole prompt's (unclaimed)
+    lg, lo = first["target"][-1], first["oracle"][-1]
+    top2 = plain_logits.topk(2).values
+
+    def dmax(a, b):
+        return (a - b).abs().max().item()
+    print(f"fleet migration: {len(tokens)} tokens, identical to the "
+          f"shape-matched oracle: {tokens == oracle_tokens}, first-token "
+          f"logits bit-identical: {torch.equal(lg, lo)}; the unclaimed "
+          f"oracle (whole prompt) matches {same} of {len(tokens)} (first "
+          f"parting at {part}; its first-token logits differ from the "
+          f"migrated run's by max {dmax(lg, plain_logits):.4f} of max|logit| "
+          f"{plain_logits.abs().max().item():.4f}, top-2 gap "
+          f"{(top2[0] - top2[1]).item():.4f}; from its own admission-time "
+          f"whole-prompt prefill's by max {dmax(iso_logits, plain_logits):.4f}"
+          f"); target launches {moved}; phase launches {counts}", flush=True)
+    if tokens != oracle_tokens or not torch.equal(lg, lo):
+        i = next((i for i, (a, b) in enumerate(zip(tokens, oracle_tokens))
+                  if a != b), None)
+        fail(f"fleet migration: the migrated run parts from the "
+             f"shape-matched oracle (first token logits equal: "
+             f"{torch.equal(lg, lo)}; tokens part at {i})")
+    if "jax" in sys.modules:
+        fail("fleet migration: jax was imported")
+    return counts
+
+
+def fleet_audit(fleet, reqs) -> dict:
+    """benchmarks/fleet_tolerance.py's conservation audit: every engine
+    that ever served (current, drained, killed and retired), allocator
+    invariants, leaked pages and encoder pins, and the workload's terminal
+    partition."""
+    from repro_torch.serving.metrics import lifecycle_counts
+    engines = list(fleet.engines) + [e for _i, e in fleet.retired]
+    violations = leaked_pages = leaked_pins = 0
+    for eng in engines:
+        try:
+            eng.allocator.check_invariants()
+        except AssertionError:
+            violations += 1
+        leaked_pages += eng.allocator.used_pages
+        if eng.encoder_cache is not None:
+            leaked_pins += eng.encoder_cache.stats()["pin_refs"]
+    counts = lifecycle_counts(reqs)
+    finished, terminal = [], []
+    for eng in engines:
+        finished += [r.rid for r in eng.finished]
+        terminal += [r.rid for r in eng.finished + eng.rejected + eng.aborted]
+    return {
+        "invariant_violations": violations,
+        "leaked_pages": leaked_pages,
+        "leaked_pins": leaked_pins,
+        "in_flight": counts["in_flight"],
+        "lost": (len(reqs) - sum(r.is_terminal for r in reqs)
+                 + len(fleet.lost)),
+        "double_finished": (len(finished) - len(set(finished))
+                            + len(terminal) - len(set(terminal))),
+    }
+
+
+def drain_when_prefilled(Fleet):
+    """``Fleet`` whose drain of replica ``drain_replica`` is set during the
+    run: from the arrival of request ``drain_from`` on, at the first
+    co-sim tick that finds the replica prefilling a request with a full
+    page of shareable content, the drain is scheduled at the arrival of
+    the latest request by then (so it starts in that tick). Real-mode
+    clocks are measured, so which tick that is varies between runs; the
+    drain then always migrates a prefilled page chain."""
+
+    @dataclasses.dataclass
+    class DrainWhenPrefilled(Fleet):
+        drain_replica: int = 0
+        drain_from: int = 0
+        arrivals: tuple = ()
+        drain_request: int | None = None
+
+        def _fleet_tick(self, pending, remaining):
+            i = self.drain_replica
+            clk = self._live_clock(remaining)
+            if self.drain_request is None and self.alive[i] and \
+                    clk is not None and \
+                    clk >= self.arrivals[self.drain_from] and any(
+                        r.prefilled >= self.engines[i].config.page_size and
+                        "!" not in r.content_chunks()[0][0]
+                        for r in self.engines[i].prefilling):
+                k = max(j for j, t in enumerate(self.arrivals) if t <= clk)
+                self.drain_request = k
+                self.fleet.drains[i] = self.arrivals[k]
+            return super()._fleet_tick(pending, remaining)
+    return DrainWhenPrefilled
+
+
+def fleet_serve_phase(torch, executor, classifier, engine_cfg,
+                      n_requests=16, drain_from=6, kill_at=10):
+    """A ``Fleet`` of three replicas of the served model, least-loaded
+    routing, policy tcm, on 16 MH requests at 4 req/s (seed 0) with
+    duplicates and shared prefixes (as benchmarks/fleet_tolerance.py
+    shapes its traffic): replica 0 drains from the arrival of request 6
+    (at the first tick it holds a prefilled page: ``drain_when_prefilled``),
+    replica 2 is killed at the arrival of request 10 and restarts 1 s
+    after, warmed from a peer's prefix trie over the page-chain protocol.
+
+    Gates: the audit (``fleet_audit``) all zero, every request finished
+    within the step bound, the drain, kill and restart happened, a
+    migration imported payload pages and the warm import shipped payload.
+    Returns the phase's kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.fleet import Fleet, FleetConfig
+    from repro_torch.serving.metrics import fmt_table, summarize
+    from repro_torch.serving.request import State
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    reqs = generate(WorkloadConfig(mix="MH", rate=4.0,
+                                   num_requests=n_requests, seed=0,
+                                   duplicate_prob=0.3,
+                                   shared_prefix_prob=0.3))
+    kill_t = reqs[kill_at].arrival
+    exes = [replica(executor) for _ in range(FLEET_REPLICAS)]
+    spy = PayloadSpy(exes)
+    fleet = drain_when_prefilled(Fleet)(
+        exes, classifier, engine_cfg, policy="tcm", routing="least-loaded",
+        faults=FaultPlan(replica_kills={2: kill_t}),
+        fleet=FleetConfig(restarts={2: 1.0}, restart_warm_pages=256),
+        drain_from=drain_from, arrivals=tuple(r.arrival for r in reqs))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = fleet.run_stepped(reqs, max_steps=FLEET_MAX_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    audit = fleet_audit(fleet, reqs)
+    warm = sum(e["warm_pages_imported"] for e in fleet.restart_events)
+    mig_pages = fleet.migrated_pages - warm
+    n_tok = sum(r.decoded for r in done)
+    placed = {r.rid: i for i, eng in list(enumerate(fleet.engines)) +
+              fleet.retired for r in eng.finished}
+    print(fmt_table(summarize(done), f"fleet of {FLEET_REPLICAS} "
+                    f"qwen2-vl-2b replicas | tcm | MH | {n_requests} "
+                    f"requests"))
+    k = fleet.drain_request
+    drain = (f"drain of replica 0 at request {k}'s arrival "
+             f"({reqs[k].arrival:.3f}s)" if k is not None else "no drain")
+    iters = sum(e.iterations for e in list(fleet.engines) +
+                [e for _i, e in fleet.retired])
+    print(f"fleet serve: {drain}, kill of replica 2 at request {kill_at}'s "
+          f"({kill_t:.3f}s); {len(done)}/{n_requests} finished, {iters} "
+          f"engine iterations, "
+          f"{n_tok} tokens in {t_run:.2f}s wall = {n_tok / t_run:.1f} "
+          f"tokens/s; peak device memory {peak / 2**30:.2f} GiB (the "
+          f"served model and its replicas); migrations attempted "
+          f"{fleet.migrations_attempted}, "
+          f"succeeded {fleet.migrations_succeeded}, fallbacks "
+          f"{fleet.migration_fallbacks}, no-ops {fleet.migration_noops}; "
+          f"pages moved by migration {mig_pages}, by warm import {warm}, "
+          f"deduped {fleet.deduped_pages}; {spy.line()}; finished on "
+          f"{placed}; drains {fleet.drain_events}; kills "
+          f"{fleet.kill_events}; restarts {fleet.restart_events}; launches "
+          f"{counts}; audit {audit}", flush=True)
+    bad = {key: v for key, v in audit.items() if v}
+    if bad:
+        fail(f"fleet serve: audit {bad}")
+    unfinished = [r.rid for r in reqs if r.state is not State.FINISHED]
+    if unfinished:
+        fail(f"fleet serve: not finished within {FLEET_MAX_STEPS} steps: "
+             f"{unfinished}")
+    if not (fleet.drain_events and fleet.kill_events and
+            fleet.restart_events):
+        fail("fleet serve: the drain, the kill or the restart did not happen")
+    if mig_pages <= 0:
+        fail("fleet serve: the drain migrated no payload pages")
+    if warm <= 0:
+        fail("fleet serve: the restart's warm import moved no payload")
+    for name in ("paged_attention", "paged_prefill_attention"):
+        if counts[name] <= 0:
+            fail(f"fleet serve: kernel {name} never launched")
+    if "jax" in sys.modules:
+        fail("fleet serve: jax was imported")
+    return counts
 
 
 def gemma_serve_phase(torch, n_requests: int):
@@ -1428,14 +1880,25 @@ def main():
     del scratch
 
     phase("serve")
-    executor, counts = serve_phase(torch, 20, breakdown=args.profile)
+    executor, counts, classifier, engine_cfg = serve_phase(
+        torch, 20, breakdown=args.profile)
+    launches = {"qwen2-vl-2b": counts}
     phase("model check")
     model_check(torch, executor, "qwen2-vl-2b")
     if args.profile:
         phase("profile")
         profile_phase(torch, executor)
         prefill_profile_phase(torch, executor)
-    del executor          # free qwen2-vl before gemma3-27b's 57 GB
+    phase("fleet migration")
+    launches["qwen2-vl-2b fleet migration"] = fleet_migration_phase(
+        torch, executor, classifier, engine_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("fleet serve")
+    launches["qwen2-vl-2b fleet serve"] = fleet_serve_phase(
+        torch, executor, classifier, engine_cfg)
+    # free qwen2-vl and its replicas before gemma3-27b's 57 GB
+    del executor, classifier
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1452,7 +1915,7 @@ def main():
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config
-    launches = {"qwen2-vl-2b": counts, "gemma3-27b": g_counts}
+    launches["gemma3-27b"] = g_counts
     phase(f"phi3.5-moe serve ({PHI_LAYERS} of 32 layers)")
     phi_cfg = dataclasses.replace(get_config(PHI), num_layers=PHI_LAYERS)
     m_executor, launches[PHI] = family_serve_phase(

@@ -1,4 +1,9 @@
-"""Paged KV store: torch page pools + batched write/read ops per layer stack.
+"""Paged KV store: torch page pools + write/read ops per layer and per
+layer stack.
+
+``PagedKVStore`` is the single-layer view (engine bookkeeping, kernel
+tests): (num_pages, page_size, KV, hd) tensors matching the paged
+attention kernels, updated in place by block-table scatters.
 
 ``PagedStackStore`` is the serving executor's batched container — the
 paged KV of one *stack* of layers (one stage's block position), flattened
@@ -20,9 +25,21 @@ exactly) and the CPU store matches the JAX package's bit for bit.
 
 The pool is zero-initialised, never ``torch.empty``: a live page's tail
 slots are read with softmax weight 0, and 0 x NaN would be NaN.
+
+``export_page``/``import_page`` move one page across every layer of a
+stack as host arrays — the payload of the page-chain migration protocol
+(serving/migration.py). numpy has no bf16, so a bf16 container travels as
+its int16 bit pattern: the bytes are the container's own.
+
+SSM/xLSTM state caches have *constant* per-request footprint, so they use
+a slot store (``SlotStore``, one row per active request) rather than
+pages.
 """
 from __future__ import annotations
 
+from typing import Protocol, runtime_checkable
+
+import numpy as np
 import torch
 
 
@@ -83,6 +100,119 @@ def scatter_pages(k_pages, v_pages, k_new, v_new, block_table, start,
     _put(k_pages, k_new, rows + base, offs)
     _put(v_pages, v_new, rows + base, offs)
     return k_pages, v_pages
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The dtype of ``to_host``'s arrays for a tensor of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array in its own bits: bf16 as its
+    int16 bit pattern (numpy has no bf16), other dtypes as they are. A
+    plain ``.cpu()``, so the copy follows the work queued on the
+    tensor's stream."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def from_host(a: np.ndarray, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """``to_host``'s inverse: an int16 array into a bf16 container is its
+    bit pattern; any other array is converted to ``dtype``. ``a`` must be
+    writable (``torch.from_numpy`` shares its memory)."""
+    t = torch.from_numpy(a)
+    if dtype == torch.bfloat16 and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=device, dtype=dtype)
+
+
+class PagedKVStore:
+    """One layer's paged KV tensors (P, page, KV, hd), updated in place."""
+
+    def __init__(self, k_pages: torch.Tensor, v_pages: torch.Tensor):
+        self.k_pages = k_pages
+        self.v_pages = v_pages
+
+    @classmethod
+    def create(cls, num_pages, page_size, kv_heads, head_dim,
+               dtype=torch.bfloat16, device="cpu"):
+        shape = (num_pages, page_size, kv_heads, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[1]
+
+    def write(self, k_new, v_new, page_ids, start: int) -> "PagedKVStore":
+        """Write S new tokens for ONE request, in place.
+
+        k_new/v_new: (S, KV, hd); page_ids: the request's pages in order;
+        start: the request's context length before this write. Returns
+        ``self``."""
+        dev = self.k_pages.device
+        pos = start + torch.arange(k_new.shape[0], device=dev)
+        pids = torch.as_tensor(page_ids, device=dev).long()[
+            pos // self.page_size]
+        offs = pos % self.page_size
+        self.k_pages[pids, offs] = k_new.to(self.k_pages.dtype)
+        self.v_pages[pids, offs] = v_new.to(self.v_pages.dtype)
+        return self
+
+    def write_batch(self, k_new, v_new, block_table, start, new_lens,
+                    trash_page) -> "PagedKVStore":
+        """Batched multi-sequence scatter, in place (``scatter_pages``).
+        Returns ``self``."""
+        scatter_pages(self.k_pages, self.v_pages, k_new, v_new, block_table,
+                      start, new_lens, trash_page)
+        return self
+
+    def gather(self, page_ids):
+        """(n_pages,) -> contiguous (n_pages*page, KV, hd) k, v."""
+        pids = torch.as_tensor(page_ids, device=self.k_pages.device).long()
+        k = self.k_pages[pids].reshape(-1, *self.k_pages.shape[2:])
+        v = self.v_pages[pids].reshape(-1, *self.v_pages.shape[2:])
+        return k, v
+
+
+@runtime_checkable
+class PagedStore(Protocol):
+    """The paged-store surface shared by the transformer's paged cache
+    protocol and the serving executor (DESIGN.md §Ragged paged execution).
+
+    A conforming store keeps one flat page pool per stack and updates it
+    in place; every method returns the store. Per-layer addressing is
+    explicit: ``write_batch``/``gather_batch``/``layer_table`` take the
+    ``layer`` index and offset into the flat pool; block tables stay in
+    allocator page-id space (0..pages_per_layer-2, with
+    ``pages_per_layer-1`` the per-layer trash page for ragged padding).
+
+    Construction goes through ``build`` (the executor sizes
+    ``pages_per_layer`` to allocator capacity + 1 trash page) and the
+    prefix cache's copy-on-write boundary copy through ``copy_page``.
+    """
+
+    @property
+    def pages_per_layer(self) -> int: ...
+
+    @property
+    def page_size(self) -> int: ...
+
+    @property
+    def trash_page(self) -> int: ...
+
+    def write_batch(self, k_new, v_new, block_table, start, new_lens, *,
+                    layer): ...
+
+    def gather_batch(self, block_table, *, layer): ...
+
+    def layer_table(self, block_table, layer): ...
+
+    def copy_page(self, src, dst): ...
 
 
 class PagedStackStore:
@@ -173,3 +303,55 @@ class PagedStackStore:
         k = self.k_pages[rows].reshape(B, -1, *self.k_pages.shape[-2:])
         v = self.v_pages[rows].reshape(B, -1, *self.v_pages.shape[-2:])
         return k, v
+
+    # -- cross-replica page-chain migration ----------------------------------
+    def _page_rows(self, page: int) -> torch.Tensor:
+        return torch.arange(self.layers, device=self.k_pages.device) * \
+            self.pages_per_layer + int(page)
+
+    def export_page(self, page: int):
+        """One allocator page's K/V across every layer of the stack as a
+        host array pair — the wire payload of the migration protocol
+        (serving/migration.py checksums and chunks it). Shape (layers,
+        page, KV, hd) each, in the container's bits (``to_host``: int16
+        for a bf16 container, f32 on the CPU, where the layout and size
+        are the JAX package's). Values are bf16-rounded on every write, so
+        payload bytes round-trip bit-exactly between replicas."""
+        rows = self._page_rows(page)
+        return to_host(self.k_pages[rows]), to_host(self.v_pages[rows])
+
+    def import_page(self, page: int, k, v) -> "PagedStackStore":
+        """Write a transferred page payload (``export_page``'s arrays)
+        into this store at ``page``, in place, on the store's stream, so
+        the next step reads it. Returns ``self``."""
+        rows = self._page_rows(page)
+        for pages, a in ((self.k_pages, k), (self.v_pages, v)):
+            pages[rows] = from_host(a, pages.dtype, pages.device)
+        return self
+
+
+class SlotStore:
+    """Constant-size per-request state (SSM/xLSTM/conv): one slot per row,
+    updated in place."""
+
+    def __init__(self, data: dict):
+        self.data = data  # name -> (slots, ...) tensors
+
+    @classmethod
+    def create(cls, num_slots: int, shapes: dict, dtypes: dict | None = None,
+               device="cpu"):
+        dtypes = dtypes or {}
+        return cls({name: torch.zeros((num_slots,) + tuple(shape),
+                                      dtype=dtypes.get(name, torch.float32),
+                                      device=device)
+                    for name, shape in shapes.items()})
+
+    def read(self, slot: int) -> dict:
+        return {k: v[slot] for k, v in self.data.items()}
+
+    def write(self, slot: int, values: dict) -> "SlotStore":
+        """Set every state of ``slot`` (``values`` names each), in place.
+        Returns ``self``."""
+        for k, a in self.data.items():
+            a[slot] = values[k]
+        return self

@@ -311,7 +311,9 @@ class ModelExecutor:
     into ``emitted``. Every timed region ends in a device synchronise, so
     the profile and the engine clock measure device work, not launches.
 
-    Not ported yet (ROADMAP.md): the page-chain migration payloads.
+    Replicas of one model share its weights: pass an executor's ``params``
+    and ``layers`` to the next one, which then keeps only its own stores,
+    allocator and per-request state.
     """
 
     # finished-request token lists retained for post-run inspection
@@ -320,7 +322,7 @@ class ModelExecutor:
     EMITTED_RETAIN = 4096
 
     def __init__(self, cfg, config: ExecutorConfig | None = None, *,
-                 device="cuda", params=None):
+                 device="cuda", params=None, layers=None):
         import torch
 
         from repro_torch.cache import BlockAllocator
@@ -362,8 +364,10 @@ class ModelExecutor:
                          is_leaf=torch.is_tensor), cfg.dtype)
         self.params = params
         # the forward reads the fused weights only: the stacked q/k/v
-        # projections are dropped as each block is fused
-        self.layers = T.layer_params(params, cfg, release=True)
+        # projections are dropped as each block is fused (so a replica
+        # takes the fused ``layers`` of the executor whose params it shares)
+        self.layers = layers if layers is not None else \
+            T.layer_params(params, cfg, release=True)
         # dense per-request slot caches: only the legacy path keeps them
         # (the batched path retires the slot store for attention KV)
         self.caches = ([T.init_cache(cfg, 1, self.max_len,
@@ -404,6 +408,10 @@ class ModelExecutor:
                 or allocator.page_size != self.allocator.page_size):
             self._stores = None   # re-created lazily at the new geometry
         self.allocator = allocator
+
+    @property
+    def capacity_pages(self) -> int:
+        return self.allocator.num_pages
 
     def _make_stores(self):
         from repro_torch.cache.paged import PagedStackStore, store_dtype
@@ -465,6 +473,62 @@ class ModelExecutor:
         self._isolated_ttft.pop(rid, None)
         self.emitted.pop(rid, None)
         self._ctx.pop(rid, None)
+
+    # -- page-chain migration payloads ---------------------------------------
+    def export_page_payload(self, pages: list[int]) -> list[bytes]:
+        """Serialize the KV bytes of allocator ``pages`` — one ``bytes``
+        blob per page, concatenating every stage/block store's
+        ``export_page`` K then V rows in declaration order. The blob is
+        the wire payload the migration protocol checksums, chunks, and (on
+        the target) hands to ``import_page_payload`` at the target's own
+        page ids; both replicas share the model config, so the layout is
+        positional. Values are bf16-rounded on write (cache.paged), so
+        payload round-trips are bit-exact and migrated prefixes decode the
+        same tokens the source would have."""
+        if self._stores is None:
+            self._stores = self._make_stores()
+        out = []
+        for p in pages:
+            parts = []
+            for stage in self._stores:
+                for s in stage.values():
+                    k, v = s.export_page(p)
+                    parts.append(k.tobytes())
+                    parts.append(v.tobytes())
+            out.append(b"".join(parts))
+        return out
+
+    def import_page_payload(self, pages: list[int],
+                            payloads: list[bytes]) -> None:
+        """Write transferred page blobs into this replica's stores, in
+        place, at the target-side page ids ``pages``
+        (``export_page_payload``'s inverse). Raises ``ValueError`` when
+        the counts differ or a blob's length is not the stores' page
+        size."""
+        from repro_torch.cache.paged import host_dtype
+        if len(pages) != len(payloads):
+            raise ValueError(f"{len(pages)} pages but {len(payloads)} "
+                             "payloads")
+        if self._stores is None:
+            self._stores = self._make_stores()
+        stores = [s for stage in self._stores for s in stage.values()]
+        shapes = [(s.layers,) + tuple(s.k_pages.shape[1:]) for s in stores]
+        dt = host_dtype(stores[0].k_pages.dtype)
+        want = 2 * sum(int(np.prod(sh)) for sh in shapes) * dt.itemsize
+        for p, blob in zip(pages, payloads):
+            if len(blob) != want:
+                raise ValueError(
+                    f"page payload of {len(blob)} bytes, the stores take "
+                    f"{want}")
+            # a writable copy: torch.from_numpy shares the array's memory
+            data = np.frombuffer(bytearray(blob), dt)
+            off = 0
+            for s, shape in zip(stores, shapes):
+                n = int(np.prod(shape))
+                k = data[off:off + n].reshape(shape)
+                v = data[off + n:off + 2 * n].reshape(shape)
+                s.import_page(p, k, v)
+                off += 2 * n
 
     @property
     def max_pages(self) -> int:

@@ -25,7 +25,9 @@ COPIED = ["cache/allocator.py", "cache/__init__.py", "core/profiler.py",
           "core/scheduler.py", "serving/request.py", "serving/workload.py",
           "serving/metrics.py", "serving/engine.py",
           "serving/encoder_cache.py", "serving/journal.py",
-          "serving/admission.py", "configs/__init__.py"] + sorted(
+          "serving/admission.py", "serving/faults.py", "serving/router.py",
+          "serving/migration.py", "serving/fleet.py",
+          "configs/__init__.py"] + sorted(
     f"configs/{p.name}" for p in (JAXPKG / "configs").glob("*.py")
     if p.name != "__init__.py")
 
@@ -51,10 +53,13 @@ def test_every_model_module_is_checked():
 
 
 def test_new_model_modules_import_alone():
-    """``models/ssm.py`` and ``models/xlstm.py`` load in a fresh process
-    without JAX or the JAX package."""
+    """``models/ssm.py``, ``models/xlstm.py`` and the fleet tier
+    (``serving/fleet.py``, ``serving/migration.py``) load in a fresh
+    process without JAX or the JAX package."""
     code = ("import sys\n"
             "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+            "import repro_torch.serving.fleet, "
+            "repro_torch.serving.migration\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

@@ -4,7 +4,8 @@ G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
 queries), the decode kernels' split over keys (rows ending on a slice
 boundary, all-empty rows), and the kernels at the serving widths
 (qwen2-vl's and phi3.5-moe's paged shapes, gemma3's, whisper-base's and
-jamba's dense ones). Marked
+jamba's dense ones), and the page-chain migration payload of a bf16
+store on the card. Marked
 ``gpu``; without a CUDA device every test skips. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
@@ -335,3 +336,35 @@ def test_cuda_prefill_attention_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         dense.prefill_attention(*bad[0][0])
     assert dense.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_page_payload_round_trip_is_bit_exact():
+    """A bf16 paged store on the card: ``export_page_payload`` (the
+    container's bits through an int16 view) then ``import_page_payload``
+    at other page ids restores every byte, and the imported rows equal the
+    exported ones on the device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving.executors import ExecutorConfig, ModelExecutor
+    ex = ModelExecutor(get_reduced("qwen2-vl-2b"),
+                       ExecutorConfig(max_slots=2, max_len=64, num_pages=8),
+                       device="cuda")
+    ex._stores = ex._make_stores()
+    stores = [s for stage in ex._stores for s in stage.values()]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for s in stores:
+        assert s.k_pages.dtype == torch.bfloat16
+        for a in (s.k_pages, s.v_pages):
+            a.copy_(torch.randn(a.shape, generator=g, device="cuda"))
+    blobs = ex.export_page_payload([1, 6])
+    ex.import_page_payload([3, 0], blobs)
+    assert ex.export_page_payload([3, 0]) == blobs
+    for s in stores:
+        rows = torch.arange(s.layers, device="cuda") * s.pages_per_layer
+        for a in (s.k_pages, s.v_pages):
+            assert torch.equal(a[rows + 3].view(torch.int16),
+                               a[rows + 1].view(torch.int16))
+            assert torch.equal(a[rows + 0].view(torch.int16),
+                               a[rows + 6].view(torch.int16))

@@ -116,3 +116,144 @@ def test_copy_page_gather_and_layer_table():
 def test_pool_starts_zeroed():
     t = TStore.build(2, 5, 4, 2, 8)
     assert not t.k_pages.any() and not t.v_pages.any()
+
+
+# -- page-chain migration payloads, the single-layer and slot stores ---------
+
+def _written(seed=3):
+    """A JAX and a port store holding the same random ragged writes on
+    every layer."""
+    g = rng(seed)
+    j, t = _pair()
+    for layer in range(LAYERS):
+        k, v, bt, start, new_lens = _batch(g, B=3, S=4)
+        j, t = _write(j, t, k, v, bt, start, new_lens, layer=layer)
+    return j, t
+
+
+def test_export_import_round_trip_is_bit_exact():
+    _, t = _written()
+    dst = TStore.build(LAYERS, PPL, PAGE, KV, HD)
+    for src_page, dst_page in ((0, 4), (3, 3), (8, 0)):
+        k, v = t.export_page(src_page)
+        assert k.shape == (LAYERS, PAGE, KV, HD) and k.dtype == np.float32
+        assert dst.import_page(dst_page, k, v) is dst       # in place
+        k2, v2 = dst.export_page(dst_page)
+        assert k2.tobytes() == k.tobytes() and v2.tobytes() == v.tobytes()
+        rows = torch.arange(LAYERS) * PPL
+        assert torch.equal(dst.k_pages[rows + dst_page],
+                           t.k_pages[rows + src_page])
+        assert torch.equal(dst.v_pages[rows + dst_page],
+                           t.v_pages[rows + src_page])
+
+
+def test_export_page_bytes_match_jax():
+    """The same K/V written through ``write_batch`` into a JAX and a port
+    store: every live page exports the same bytes (f32 containers on the
+    CPU, so the same layout and size)."""
+    j, t = _written(seed=4)
+    for page in range(PPL - 1):
+        jk, jv = j.export_page(page)
+        tk, tv = t.export_page(page)
+        assert tk.tobytes() == jk.tobytes() and tv.tobytes() == jv.tobytes()
+
+
+def test_paged_kv_store_matches_jax():
+    from repro.cache.paged import PagedKVStore as JKV
+    from repro_torch.cache.paged import PagedKVStore as TKV
+    P = 9
+    g = rng(8)
+    j = JKV.create(P, PAGE, KV, HD, dtype=jnp.float32)
+    t = TKV.create(P, PAGE, KV, HD, dtype=torch.float32)
+    assert t.page_size == j.page_size == PAGE
+    pages = [5, 2, 7]
+    k, v = normal(g, 10, KV, HD), normal(g, 10, KV, HD)
+    j = j.write(jnp.asarray(k), jnp.asarray(v), pages, start=1)
+    assert t.write(torch.from_numpy(k), torch.from_numpy(v), pages,
+                   start=1) is t
+    kb, vb, bt, start, new_lens = _batch(g, B=3, S=3)
+    bt = np.where(bt == PPL - 1, P - 1, bt % (P - 1)).astype(np.int32)
+    bt[:, :2] = [[0, 1], [3, 4], [6, 8]]
+    j = j.write_batch(jnp.asarray(kb), jnp.asarray(vb), jnp.asarray(bt),
+                      jnp.asarray(start), jnp.asarray(new_lens),
+                      trash_page=P - 1)
+    assert t.write_batch(torch.from_numpy(kb), torch.from_numpy(vb),
+                         torch.from_numpy(bt), torch.from_numpy(start),
+                         torch.from_numpy(new_lens), trash_page=P - 1) is t
+    live = slice(0, P - 1)      # the trash page takes colliding padding
+    np.testing.assert_array_equal(np.asarray(j.k_pages)[live],
+                                  t.k_pages.numpy()[live])
+    np.testing.assert_array_equal(np.asarray(j.v_pages)[live],
+                                  t.v_pages.numpy()[live])
+    for ids in (pages, [0, 4, 6]):
+        jk, jv = j.gather(ids)
+        tk, tv = t.gather(ids)
+        assert tk.shape == (len(ids) * PAGE, KV, HD)
+        np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
+        np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+
+
+def test_slot_store_matches_jax():
+    from repro.cache.paged import SlotStore as JSlot
+    from repro_torch.cache.paged import SlotStore as TSlot
+    shapes = {"h": (4, 3), "conv": (2,)}
+    j = JSlot.create(3, shapes)
+    t = TSlot.create(3, shapes, {"conv": torch.float32})
+    g = rng(9)
+    for slot in (2, 0, 2):
+        vals = {n: normal(g, *sh) for n, sh in shapes.items()}
+        j = j.write(slot, {n: jnp.asarray(a) for n, a in vals.items()})
+        assert t.write(slot, {n: torch.from_numpy(a)
+                              for n, a in vals.items()}) is t
+    for slot in range(3):
+        jr, tr = j.read(slot), t.read(slot)
+        assert sorted(jr) == sorted(tr)
+        for n in shapes:
+            assert tr[n].dtype == torch.float32
+            np.testing.assert_array_equal(np.asarray(jr[n]), tr[n].numpy())
+
+
+def test_store_conforms_to_the_paged_store_protocol():
+    from repro_torch.cache.paged import PagedStore
+    assert isinstance(TStore.build(1, 2, 4, 1, 8), PagedStore)
+
+
+def _executor(**kw):
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving.executors import ExecutorConfig, ModelExecutor
+    return ModelExecutor(get_reduced("chatglm3-6b"),
+                         ExecutorConfig(max_slots=2, max_len=64, **kw),
+                         device="cpu")
+
+
+def test_capacity_pages_is_the_bound_allocators():
+    from repro_torch.cache import BlockAllocator
+    ex = _executor(num_pages=12)
+    assert ex.capacity_pages == ex.allocator.num_pages == 12
+    ex.bind_allocator(BlockAllocator(num_pages=30, page_size=16))
+    assert ex.capacity_pages == 30
+
+
+def test_page_payload_round_trip_and_length_check():
+    """``export_page_payload`` -> ``import_page_payload`` at other page ids
+    restores every stage/block store's bytes; a blob of any other length,
+    or a count mismatch, raises instead of importing part of it."""
+    ex = _executor(num_pages=8)
+    ex._stores = ex._make_stores()
+    g = torch.Generator().manual_seed(0)
+    for stage in ex._stores:
+        for s in stage.values():
+            for a in (s.k_pages, s.v_pages):
+                a.copy_(torch.randn(a.shape, generator=g)
+                        .to(torch.bfloat16).float())
+    blobs = ex.export_page_payload([1, 5])
+    cfg = ex.cfg
+    per_page = 2 * cfg.num_layers * 16 * cfg.num_kv_heads * cfg.hd * 4
+    assert [len(b) for b in blobs] == [per_page] * 2
+    ex.import_page_payload([6, 0], blobs)
+    assert ex.export_page_payload([6, 0]) == blobs
+    for bad in (blobs[0][:-4], blobs[0] + b"\0\0\0\0"):
+        with pytest.raises(ValueError, match="page payload"):
+            ex.import_page_payload([2], [bad])
+    with pytest.raises(ValueError, match="payloads"):
+        ex.import_page_payload([2, 3], blobs[:1])
