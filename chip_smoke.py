@@ -84,7 +84,23 @@ Phases, each printing its own lines:
  14. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
      width and depth, on the dense-slot path (8 and 6 MH requests);
      whisper must launch prefill_attention, xlstm no kernel;
- 15. launches per model, a JSON line of every kernel's numbers (launches
+ 15. train check: full-width qwen2-vl-2b cut to 2 layers (f32 masters
+     from a seed, q/k/v at fan-in D), one train_step on the card and on
+     the CPU (B=1, S=256 with a 128-unit stub image at M-RoPE positions),
+     in f32 (loss, grad norm, every gradient leaf within 1e-3 of its max,
+     parameters within 2 lr) and in bf16 (the card no further from the
+     CPU's f32 than the CPU's bf16 is); prefill_attention on a query that
+     requires grad must raise;
+ 16. train qwen2-vl-2b: full width and depth (1.777 B parameters, f32
+     masters and moments, bf16 compute), 5 train steps at B=2, S=1024
+     with a 512-unit stub image, then two with remat; each step's loss,
+     grad norm, lr, seconds, tokens/s and peak device memory;
+ 17. train xlstm-125m: the training launcher with its default arch at
+     full size, 20 steps at B=4, S=64 with a checkpoint, which must load
+     bit for bit into a state made from another seed and give the same
+     loss on a fixed batch, bit for bit. No training phase may launch a
+     kernel: no kernel has a backward;
+ 18. launches per model, a JSON line of every kernel's numbers (launches
      summed over every serve and fleet phase), then the device JSON line
      last.
 
@@ -93,9 +109,10 @@ memory, its launches, and the host enqueue, enqueue-plus-device and
 device (profiler) time of a decode step (and, for phi3.5-moe, of a
 512-token prefill step).
 
-``--profile`` adds, after each serve phase, where a serving step's time
-goes: a decode step's (qwen2-vl) or decode forward's (gemma3) host
-enqueue against enqueue-plus-device time with a profiler table, the same
+``--profile`` adds a profiler table of one full-width qwen2-vl-2b train
+step, and, after each serve phase, where a serving step's time goes: a
+decode step's (qwen2-vl) or decode forward's (gemma3) host enqueue
+against enqueue-plus-device time with a profiler table, the same
 for a 512-token prefill chunk (qwen2-vl at context 3072, gemma3 at 1536)
 with the prefill kernel's share of the device time, and the decode
 kernel's time against context length.
@@ -1792,6 +1809,388 @@ def gemma_profile_phase(torch, executor):
         leaf.zero_()
 
 
+# ---------------------------------------------------------------------------
+# training: one step on the card against the CPU, full-width qwen2-vl-2b,
+# xlstm-125m through the launcher with a checkpoint
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-vl-2b"
+CHECK_LAYERS, CHECK_S, CHECK_LR = 2, 256, 3e-4  # the card against the CPU
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 1024, 5       # full-width qwen2-vl-2b
+XLSTM_ARGS = ["--steps", "20", "--batch", "4", "--seq", "64"]
+BF16_ULP = 2.0 ** -7
+
+
+def image_batch(torch, cfg, B, S, step, dev):
+    """``PackedTokenDataset`` batch ``step`` (B rows of S tokens) with a
+    stub image: its first N = min(mm_tokens, S // 2) positions take random
+    patch embeddings on a grid of r rows by N // r columns (M-RoPE
+    positions: temporal 0, row, column), the text after it runs on from
+    max(rows, columns) on all three streams, and the loss is masked where
+    the label is an image token."""
+    from repro_torch.train.data import PackedTokenDataset
+    n = min(cfg.mm_tokens, S // 2)
+    rows = max(r for r in range(1, math.isqrt(n) + 1) if n % r == 0)
+    cols = n // rows
+    b = PackedTokenDataset(cfg.vocab_size, S, seed=0).batch(step, B)
+    g = np.random.default_rng(step)
+    b["mm_embeds"] = g.standard_normal((B, n, cfg.d_model), np.float32)
+    pos = np.zeros((S, 3), np.int32)
+    pos[:n, 1], pos[:n, 2] = np.arange(n) // cols, np.arange(n) % cols
+    pos[n:] = (max(rows, cols) + np.arange(S - n))[:, None]
+    b["positions"] = np.broadcast_to(pos, (B, S, 3)).copy()
+    b["loss_mask"] = np.ones((B, S), np.float32)
+    b["loss_mask"][:, :n - 1] = 0.0
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def grads_of(torch, state, metrics):
+    """A first step's gradient leaves on the CPU, read back from its first
+    moment: mu = (1 - b1) * g * min(1, 1 / |g|) from zero moments."""
+    from repro_torch.train.optimizer import leaves
+    scale = 0.1 * min(1.0, 1.0 / max(metrics["grad_norm"], 1e-9))
+    return [m.cpu() / scale for m in leaves(state.opt.mu)]
+
+
+def grad_errors(got, want):
+    """(rms over the leaves of each leaf's relative rms error, the worst
+    leaf's max error relative to its max)."""
+    rms, worst = [], 0.0
+    for g, w in zip(got, want, strict=True):
+        d = (g - w).double()
+        rms.append(float(d.square().mean().sqrt() /
+                         w.double().square().mean().sqrt()))
+        worst = max(worst, float(d.abs().max() / w.abs().max()))
+    return math.sqrt(sum(r * r for r in rms) / len(rms)), worst
+
+
+def qkv_fan_in_d(params, cfg):
+    """Scale every attention q/k/v projection (a stacked ``(layers, D,
+    heads, hd)`` leaf) in place to fan-in D, as the parity tests run them
+    (tests/torch_parity.fan_in_d). Both packages draw them at fan-in
+    ``heads`` (the declaration rule reads the second-to-last axis): at
+    qwen2-vl-2b's widths attention logits then have std ~300, every
+    softmax row is one-hot, two right bf16 evaluations part wherever a
+    rounding picks another key, and the gradient grows by orders of
+    magnitude a layer (``train_qwen_phase`` prints it at full depth)."""
+    for stage in params["stages"]:
+        for blk in stage.values():
+            for name in ("wq", "wk", "wv"):
+                w = blk["attn"][name]
+                w.mul_(math.sqrt(w.shape[-2] / cfg.d_model))
+
+
+def grad_norm(torch, params, cfg, batch):
+    """(loss, global gradient norm) of ``loss_fn`` at ``params``, without
+    an update."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import leaves
+    live = tree_map(lambda p: p.detach().requires_grad_(), params,
+                    is_leaf=torch.is_tensor)
+    total, (loss, _) = loop.loss_fn(live, cfg, batch)
+    grads = torch.autograd.grad(total, leaves(live))
+    norm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads))
+    return float(loss.detach()), float(norm)
+
+
+def train_check_phase(torch):
+    """One ``train_step`` of full-width qwen2-vl-2b cut to CHECK_LAYERS
+    (f32 masters from one seed, one image batch of CHECK_S tokens) on the
+    card and on the CPU, in f32 and in the default bf16 compute, with the
+    q/k/v projections at fan-in D (``qkv_fan_in_d``). f32: loss and grad
+    norm within 1e-3 relative, each gradient leaf within 1e-3 of its max
+    |g|, the updated parameters within 2 lr (Adam's first step moves each
+    by lr times its gradient's sign). bf16: the card's gradients no
+    further from the CPU's f32 ones than the CPU's bf16 are (the rms of
+    the leaves' relative rms errors at most 1.1x, the worst leaf's max
+    error at most 1.1x plus one bf16 ulp), its loss within 1e-3 relative
+    of the f32 loss. A ``prefill_attention`` call on a query that
+    requires grad must raise, and no kernel may launch. Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import adamw_init, leaves
+    ops.reset_launch_counts()
+    cfg = dataclasses.replace(get_config(QWEN), num_layers=CHECK_LAYERS)
+    masters = loop.make_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda").params
+    qkv_fan_in_d(masters, cfg)
+    host = tree_map(lambda t: t.cpu(), masters, is_leaf=torch.is_tensor)
+    batch = image_batch(torch, cfg, 1, CHECK_S, 0, "cpu")
+    print(f"train check: {cfg.name} at full width cut to {CHECK_LAYERS} "
+          f"layers ({sum(t.numel() for t in leaves(host))} parameters), "
+          f"B=1, S={CHECK_S}, {int(batch['mm_embeds'].shape[1])} image "
+          f"units", flush=True)
+    runs = {}
+    for where, dtype in (("card", torch.float32), ("cpu", torch.float32),
+                         ("card", torch.bfloat16), ("cpu", torch.bfloat16)):
+        dev = "cuda" if where == "card" else "cpu"
+        params = tree_map(torch.clone, masters if where == "card" else host,
+                          is_leaf=torch.is_tensor)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = loop.train_step(
+            loop.TrainState(params, adamw_init(params)), b,
+            dataclasses.replace(cfg, dtype=dtype), base_lr=CHECK_LR)
+        synchronize(dev)
+        sec = time.perf_counter() - t0
+        m = {k: float(v) for k, v in m.items()}
+        key = f"{where} {str(dtype).replace('torch.', '')}"
+        runs[key] = dict(m, grads=grads_of(torch, state, m), params=[
+            t.cpu() for t in leaves(state.params)])
+        print(f"  {key}: loss {m['loss']:.6f}, grad norm "
+              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}, {sec:.2f} s",
+              flush=True)
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"train check {key}: metrics not finite: {m}")
+        del state, params
+    card, cpu = runs["card float32"], runs["cpu float32"]
+    diff = {k: abs(card[k] - cpu[k]) for k in ("loss", "grad_norm")}
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(card["grads"], cpu["grads"]))
+    p_err = max(float((a - b).abs().max())
+                for a, b in zip(card["params"], cpu["params"]))
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(cpu["params"], leaves(host)))
+    lr = cpu["lr"]
+    print(f"  f32, card vs CPU: loss {diff['loss']:.3e}, grad norm "
+          f"{diff['grad_norm']:.3e}, worst gradient leaf {worst:.3e} of its "
+          f"max |g| (limit 1e-3), parameters {p_err:.3e} (limit 2 lr = "
+          f"{2 * lr:.3e}); {moved}/{len(cpu['params'])} leaves moved",
+          flush=True)
+    if any(diff[k] > 1e-3 * abs(cpu[k]) for k in diff):
+        fail(f"train check f32: loss and grad norm part by {diff}")
+    if worst > 1e-3:
+        fail(f"train check f32: gradients part by {worst:.3e} of scale")
+    if p_err > 2 * lr * (1 + 1e-3):
+        fail(f"train check f32: parameters part by {p_err} > 2 lr")
+    if moved != len(cpu["params"]):
+        fail(f"train check: only {moved} leaves moved")
+    on_card = grad_errors(runs["card bfloat16"]["grads"], cpu["grads"])
+    on_cpu = grad_errors(runs["cpu bfloat16"]["grads"], cpu["grads"])
+    dl = {k: abs(runs[k]["loss"] - cpu["loss"])
+          for k in ("card bfloat16", "cpu bfloat16")}
+    print(f"  bf16 against the CPU's f32: card rms {on_card[0]:.3e}, worst "
+          f"leaf {on_card[1]:.3e}, loss {dl['card bfloat16']:.3e}; CPU "
+          f"rms {on_cpu[0]:.3e}, worst leaf {on_cpu[1]:.3e}, loss "
+          f"{dl['cpu bfloat16']:.3e}", flush=True)
+    if on_card[0] > 1.1 * on_cpu[0] or \
+            on_card[1] > 1.1 * on_cpu[1] + BF16_ULP:
+        fail(f"train check bf16: the card's gradients ({on_card}) are "
+             f"further from f32 than the CPU's bf16 ones ({on_cpu})")
+    if dl["card bfloat16"] > 1e-3 * abs(cpu["loss"]):
+        fail(f"train check bf16: the card's loss parts from f32 by "
+             f"{dl['card bfloat16']}")
+    q = torch.zeros((1, 4, cfg.num_heads, cfg.hd), dtype=torch.bfloat16,
+                    device="cuda", requires_grad=True)
+    k = torch.zeros((1, 4, cfg.num_kv_heads, cfg.hd), dtype=torch.bfloat16,
+                    device="cuda")
+    try:
+        ops.prefill_attention(q, k, k)
+    except RuntimeError as e:
+        print(f"  prefill_attention under autograd raised: {e}")
+    else:
+        fail("train check: prefill_attention ran under autograd")
+    counts = ops.launch_counts()
+    need("train check", counts, idle=tuple(counts))
+    return counts
+
+
+def train_bound_ms(cfg, n_params, B, S):
+    """The least time of one step: its products at the bf16 peak (6 flops
+    a parameter a token outside the embedding lookup, and the attention's
+    QK and PV products over every (query, key) pair, forward and
+    backward), and AdamW's bytes at the memory rate (f32 parameters,
+    gradients and both moments read, parameters and moments written)."""
+    matmul = 6 * (n_params - cfg.vocab_size * cfg.d_model) * B * S
+    attn = 3 * 4 * B * S * S * cfg.num_heads * cfg.hd * cfg.num_layers
+    ops_ms = (matmul + attn) / BF16_FLOPS_PER_S * 1e3
+    adam_ms = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    return ops_ms, adam_ms
+
+
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def train_profile(torch, state, cfg, batch):
+    """A profiler table of one train step (kept: ``train_step`` writes
+    the state in place), its device time, and the share of it in matrix
+    products (kernels named like cuBLAS's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import loop
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = loop.train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=15))
+    gemm, total = device_share(prof, GEMM_KERNELS)
+    print(f"  profiled train step: device time {total / 1e3:.2f} ms, "
+          f"matrix products {gemm / 1e3:.2f} ms ({gemm / max(total, 1e-9):.1%})",
+          flush=True)
+    return state
+
+
+def train_qwen_phase(torch, profile=False):
+    """TRAIN_STEPS train steps of full-width qwen2-vl-2b (f32 masters from
+    a seed, the config's bf16 compute) over image batches of TRAIN_B rows
+    of TRAIN_S tokens, then two with ``remat``
+    (the first pays ``torch.utils.checkpoint``'s one-time set-up): each
+    step's loss, grad norm, lr, synchronised seconds, tokens/s and peak
+    device memory. First the gradient norm at the declared init is
+    printed; the steps run with the q/k/v projections at fan-in D
+    (``qkv_fan_in_d``). Then a forward and backward alone, timed, and
+    with ``profile`` a profiler table of one more step. Gates: finite
+    metrics, parameters that moved, no kernel launched. Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import leaves
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, B, S, steps, dev = get_config(QWEN), TRAIN_B, TRAIN_S, \
+        TRAIN_STEPS, "cuda"
+    t0 = time.perf_counter()
+    state = loop.make_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    synchronize(dev)
+    n = sum(t.numel() for t in leaves(state.params))
+    before = [t.clone() for t in (state.params["final_norm"],
+                                  state.params["stages"][0]["b0"]["mlp"]
+                                  ["wo"][0])]
+    ops_ms, adam_ms = train_bound_ms(cfg, n, B, S)
+    print(f"train {cfg.name}: {cfg.num_layers} layers, {n} parameters "
+          f"(f32 masters and moments: {16 * n / 1e9:.2f} GB with the "
+          f"gradients), compute {cfg.dtype}, B={B}, S={S}; state made in "
+          f"{time.perf_counter() - t0:.2f} s; bound {ops_ms:.2f} ms of "
+          f"products at the bf16 peak + {adam_ms:.2f} ms of AdamW bytes",
+          flush=True)
+    loss, norm = grad_norm(torch, state.params, cfg,
+                           image_batch(torch, cfg, B, S, 0, dev))
+    print(f"  at the declared init (q/k/v at fan-in heads): loss "
+          f"{loss:.4f}, gradient norm {norm:.4e}; the steps run with q/k/v "
+          f"at fan-in D", flush=True)
+    qkv_fan_in_d(state.params, cfg)
+    secs = []
+    for step in range(steps + 2):
+        remat = step >= steps
+        if step == steps:
+            torch.cuda.reset_peak_memory_stats()
+        batch = image_batch(torch, cfg, B, S, step, dev)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        state, m = loop.train_step(state, batch, cfg, remat=remat)
+        synchronize(dev)
+        sec = time.perf_counter() - t1
+        m = {k: float(v) for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  step {step}{' (remat)' if remat else ''}: loss "
+              f"{m['loss']:.4f}, grad norm {m['grad_norm']:.4f}, lr "
+              f"{m['lr']:.3e}, {sec:.4f} s, {B * S / sec:.1f} tokens/s, "
+              f"peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)",
+              flush=True)
+        if not all(math.isfinite(v) for v in m.values()):
+            fail(f"train {cfg.name} step {step}: metrics not finite: {m}")
+        if 0 < step < steps:
+            secs.append(sec)
+    if secs:
+        mean = sum(secs) / len(secs)
+        print(f"  steps 1-{steps - 1}: {mean:.4f} s/step, "
+              f"{B * S / mean:.1f} tokens/s", flush=True)
+    batch = image_batch(torch, cfg, B, S, steps + 2, dev)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    grad_norm(torch, state.params, cfg, batch)
+    synchronize(dev)
+    print(f"  forward and backward alone: {time.perf_counter() - t1:.4f} s",
+          flush=True)
+    if profile:
+        state = train_profile(torch, state, cfg, batch)
+    after = (state.params["final_norm"],
+             state.params["stages"][0]["b0"]["mlp"]["wo"][0])
+    if any(torch.equal(a, b) for a, b in zip(before, after)):
+        fail(f"train {cfg.name}: parameters did not move")
+    counts = ops.launch_counts()
+    need(f"train {cfg.name}", counts, idle=tuple(counts))
+    return counts
+
+
+def train_xlstm_phase(torch):
+    """The launcher (``repro_torch.launch.train.main``) with its default
+    arch, xlstm-125m at full size, with XLSTM_ARGS and a checkpoint;
+    then the checkpoint loaded into a state made from another seed: every
+    leaf equal bit for bit to the trained state, and a forward loss on one
+    fixed batch bit-identical. No kernel may launch. Returns the launch
+    counts."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop
+    from repro_torch.train.checkpoint import load
+    from repro_torch.train.data import PackedTokenDataset
+    from repro_torch.train.optimizer import leaves
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps, batch, seq = (int(a) for a in XLSTM_ARGS[1::2])
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "xlstm_125m.npz")
+        t0 = time.perf_counter()
+        live = launcher.main(XLSTM_ARGS + ["--ckpt", ckpt])
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        size = os.path.getsize(ckpt)
+        cfg = dataclasses.replace(get_config("xlstm-125m"), max_seq_len=seq)
+        other = loop.make_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(1), dev)
+        t1 = time.perf_counter()
+        restored = load(ckpt, other)
+        synchronize(dev)
+        t_load = time.perf_counter() - t1
+    print(f"train xlstm-125m: {steps} steps in {wall:.2f} s "
+          f"({wall / steps:.3f} s/step with the state's making and the "
+          f"checkpoint), peak device memory {peak / 2**30:.2f} GiB ({peak} "
+          f"bytes); checkpoint {size} bytes, loaded in {t_load:.2f} s",
+          flush=True)
+    differ = [i for i, (a, b) in enumerate(zip(leaves(restored),
+                                               leaves(live), strict=True))
+              if not same_bits(torch, a, b)]
+    if differ:
+        fail(f"train xlstm-125m: restored leaves {differ} differ")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         PackedTokenDataset(cfg.vocab_size, seq, seed=1).batch(0, batch)
+         .items()}
+    with torch.no_grad():
+        l_live = loop.loss_fn(live.params, cfg, b)[0]
+        l_back = loop.loss_fn(restored.params, cfg, b)[0]
+    print(f"  {len(leaves(live))} leaves restored bit for bit; loss on a "
+          f"fixed batch {float(l_live):.6f} live, {float(l_back):.6f} "
+          f"restored", flush=True)
+    if not same_bits(torch, l_live, l_back):
+        fail("train xlstm-125m: the restored state's loss differs")
+    counts = ops.launch_counts()
+    need("train xlstm-125m", counts, idle=tuple(counts))
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1964,6 +2363,18 @@ def main():
     del x_executor
     gc.collect()
     torch.cuda.empty_cache()
+
+    # training runs no kernel: no kernel has a backward (kernels/ops.py)
+    phase("train check")
+    launches["train check"] = train_check_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"train {QWEN}")
+    launches[f"train {QWEN}"] = train_qwen_phase(torch, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train xlstm-125m")
+    launches["train xlstm-125m"] = train_xlstm_phase(torch)
 
     for model, c in launches.items():
         print(f"launches, {model}: {c}")

@@ -4,8 +4,18 @@ A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises: a failed build or launch is never hidden behind the plain version.
 A CPU tensor goes to the plain torch version in ``ref.py`` (the tests run
 there). Any other device raises.
+
+No kernel has a backward, in this package or in the JAX one (``jax.grad``
+fails through the Pallas kernels), and a kernel's output, written through
+ctypes, carries no autograd node. So every op raises when gradients are
+enabled and any tensor input requires one, on both routes, rather than
+return an output the gradient would silently skip: training sends its
+attention through ``layers.mha`` (``transformer.forward(...,
+causal_impl="mha")``).
 """
 from __future__ import annotations
+
+import torch
 
 from . import paged_attention as _decode
 from . import paged_prefill_attention as _prefill
@@ -18,6 +28,13 @@ KERNELS = {"paged_attention": _decode,
            "prefill_attention": _dense}
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; run it under "
+            "torch.no_grad() or route training through layers.mha")
+
+
 def _route(t) -> str:
     if t.device.type in ("cuda", "cpu"):
         return t.device.type
@@ -26,6 +43,7 @@ def _route(t) -> str:
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
                     softcap: float = 0.0):
+    _refuse_autograd("paged_attention", q, k_pages, v_pages)
     if _route(q) == "cuda":
         return _decode.paged_attention(q, k_pages, v_pages, block_table,
                                        lengths, softcap=softcap)
@@ -35,6 +53,7 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, q_start,
                             new_lens, *, softcap: float = 0.0):
+    _refuse_autograd("paged_prefill_attention", q, k_pages, v_pages)
     if _route(q) == "cuda":
         return _prefill.paged_prefill_attention(
             q, k_pages, v_pages, block_table, q_start, new_lens,
@@ -45,6 +64,7 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, q_start,
 
 def prefill_attention(q, k, v, *, q_start: int = 0, window: int = 0,
                       softcap: float = 0.0):
+    _refuse_autograd("prefill_attention", q, k, v)
     if _route(q) == "cuda":
         return _dense.prefill_attention(q, k, v, q_start=q_start,
                                         window=window, softcap=softcap)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import causal_mask
 
 from .config import ModelConfig
 from .rope import apply_rope_tables
@@ -148,7 +149,7 @@ def _maybe_dequant(x, compute_dtype, scale=None):
 
 def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
                     window: int = 0, cache=None, kv_override=None,
-                    is_causal: bool = True):
+                    is_causal: bool = True, causal_impl: str = "kernel"):
     """Dense attention sub-block (norm handled by the caller).
 
     x: (B, S, D); p: the layer's ``fuse_attn`` weights; rope:
@@ -164,6 +165,10 @@ def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
     through ``kernels.ops.prefill_attention`` (the hand-written kernel on
     the card); cross attention (``kv_override``) and the bidirectional
     encoder (``is_causal=False``) use ``mha``, as in the JAX package.
+    ``causal_impl="mha"`` sends the cache-less causal attention through
+    ``mha`` with ``causal_mask`` instead: the JAX package's non-kernel
+    branch, the one its training differentiates (no kernel has a
+    backward).
 
     Returns (out (B, S, D), new_cache): the cache dict with ``idx + S``,
     sharing the updated buffers.
@@ -205,6 +210,9 @@ def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
         mask = torch.ones((S, ck.shape[1]), dtype=torch.bool,
                           device=x.device)
         out = mha(q, ck.to(q.dtype), cv.to(q.dtype), mask, softcap=softcap)
+    elif is_causal and causal_impl == "mha":
+        mask = causal_mask(q_start, S, S, window, device=x.device)
+        out = mha(q, k, v, mask, softcap=softcap)
     elif is_causal:
         out = kops.prefill_attention(q.contiguous(), k, v, q_start=q_start,
                                      window=window, softcap=softcap)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN, ENC_ATTN, MAMBA,
@@ -306,9 +307,16 @@ def layer_params(params, cfg: ModelConfig, *, release: bool = False,
         per = {}
         for bi, _bt in enumerate(period):
             stacked = stage[f"b{bi}"]
+            # one unbind per stacked leaf, not one select per layer: under
+            # autograd a select's backward writes a zeroed stacked-size
+            # gradient for each layer (O(layers^2) traffic); unbind's
+            # stacks the layers' gradients once
+            parts = tree_map(lambda a: a.unbind(0), stacked,
+                             is_leaf=torch.is_tensor)
             per[f"b{bi}"] = [
-                L.fuse_block(tree_map(lambda a, li=li: a[li], stacked,
-                                      is_leaf=torch.is_tensor), cfg)
+                L.fuse_block(tree_map(lambda t, li=li: t[li], parts,
+                                      is_leaf=lambda t: isinstance(t, tuple)),
+                             cfg)
                 for li in range(reps)]
             if release and "attn" in stacked:
                 for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
@@ -366,14 +374,15 @@ def _cross_attention(h, cp, cfg, cache, enc_out):
     return torch.einsum("bshk,hkd->bsd", out, cp["wo"])
 
 
-def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None):
+def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None,
+                   causal_impl="kernel"):
     """Attention-family block (ATTN, ATTN_L, ATTN_MOE, ENC_ATTN, DEC_ATTN)
     with the dense slot cache of this layer (written in place) or none:
     (x, aux)."""
     h = L.norm(x, bp, cfg, "ln1")
     attn_out, _ = L.attention_block(
         h, bp, cfg, rope=rope, q_start=q_start, window=cfg.window_for(bt),
-        cache=cache, is_causal=bt != ENC_ATTN)
+        cache=cache, is_causal=bt != ENC_ATTN, causal_impl=causal_impl)
     x = x + attn_out
     if bt == DEC_ATTN:
         h = L.norm(x, bp, cfg, "ln_x")
@@ -388,7 +397,8 @@ def _write_state(cache, new):
             cache[k].copy_(a)
 
 
-def _apply_block(x, bp, bt, cfg, *, rope, q_start, cache, enc_out):
+def _apply_block(x, bp, bt, cfg, *, rope, q_start, cache, enc_out,
+                 causal_impl="kernel"):
     """One block on the dense slot cache or with none: (x, aux or None)."""
     if bt in (MAMBA, MAMBA_MOE):
         h = L.norm(x, bp, cfg, "ln1")
@@ -404,7 +414,8 @@ def _apply_block(x, bp, bt, cfg, *, rope, q_start, cache, enc_out):
         _write_state(cache, new)
         return x + out, None
     return _apply_attnish(x, bp, bt, cfg, rope=rope, q_start=q_start,
-                          cache=cache, enc_out=enc_out)
+                          cache=cache, enc_out=enc_out,
+                          causal_impl=causal_impl)
 
 
 def dense_supported(cfg: ModelConfig) -> bool:
@@ -448,7 +459,8 @@ def encode(params, cfg: ModelConfig, frames):
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             mm_embeds=None, enc_frames=None, cache=None, q_start=0,
-            last_only=False, last_pos=None, attn_impl="gather", layers=None):
+            last_only=False, last_pos=None, attn_impl="gather", layers=None,
+            causal_impl="kernel", remat=False):
     """Unified forward.
 
     tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope; default
@@ -470,8 +482,16 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
       per row, and "new_lens" (B,) valid new tokens per row (ATTN and
       ATTN_MOE decoders only, ``paged_supported``). attn_impl ('gather' |
       'kernel') picks the paged attention backend (see
-      layers.paged_attention_block); dense and cache-less causal
-      attention always goes through ``kernels.ops.prefill_attention``.
+      layers.paged_attention_block); dense-cache causal attention always
+      goes through ``kernels.ops.prefill_attention``.
+    causal_impl: the cache-less causal attention — 'kernel' (default,
+      every serving call) through ``kernels.ops.prefill_attention``, or
+      'mha' through ``layers.mha`` with a causal mask, the JAX package's
+      non-kernel branch: the one training differentiates, since no kernel
+      has a backward (``kernels.ops`` raises under autograd).
+    remat: recompute each decoder block's activations in the backward
+      (``torch.utils.checkpoint`` over each layer's block, as the JAX
+      package's ``jax.checkpoint`` over each scan step); cache-less only.
     last_pos: (B,) int — gather this position per row before the lm_head
       (ragged packed prefill: only each row's last real token needs
       logits). last_only: the final position only (serving prefill).
@@ -487,6 +507,10 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             "slot cache)")
     if not dense_supported(cfg):
         raise ValueError(f"{cfg.name}: unknown block type in {cfg.stages()}")
+    if causal_impl not in ("kernel", "mha"):
+        raise ValueError(f"causal_impl {causal_impl!r}: 'kernel' or 'mha'")
+    if remat and cache is not None:
+        raise ValueError("remat is for the cache-less forward (training)")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -539,9 +563,15 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                         blk = {k: a[li] for k, a in
                                cache["stages"][si][name].items()}
                         blk["idx"] = idx
-                    x, a = _apply_block(x, layers[si][name][li], bt, cfg,
-                                        rope=rope, q_start=q_start,
-                                        cache=blk, enc_out=enc_out)
+                    kw = dict(rope=rope, q_start=q_start, cache=blk,
+                              enc_out=enc_out, causal_impl=causal_impl)
+                    if remat:
+                        x, a = checkpoint(_apply_block, x,
+                                          layers[si][name][li], bt, cfg,
+                                          use_reentrant=False, **kw)
+                    else:
+                        x, a = _apply_block(x, layers[si][name][li], bt,
+                                            cfg, **kw)
                     if a is not None:
                         aux = aux + a
         new_cache = None if cache is None else {

@@ -1,0 +1,73 @@
+"""Train state and train step: the JAX package's loss over the cache-less
+forward, with the same mixed precision (f32 masters cast to
+``cfg.dtype`` inside the differentiated function), attention through
+``layers.mha`` (no kernel has a backward) and AdamW in place."""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import init_params, tree_map
+
+from .optimizer import AdamWState, adamw_init, adamw_update, cosine_lr, leaves
+
+AUX_LOSS_COEF = 0.01
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+
+
+def make_train_state(cfg: ModelConfig, gen: torch.Generator,
+                     device) -> TrainState:
+    """f32 master parameters drawn from ``gen`` (on its own device, as
+    ``init_params`` draws), placed on ``device``; zero moments."""
+    params = init_params(T.model_decls(cfg), gen, device=device)
+    return TrainState(params, adamw_init(params))
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat=False):
+    """(loss + AUX_LOSS_COEF * aux, (loss, aux)): the masked mean token
+    NLL from an f32 log-softmax, and the MoE load-balance loss. The f32
+    masters are cast to ``cfg.dtype`` here, inside the graph, so the
+    gradients flow through the cast into the masters, as in the JAX
+    package's forward."""
+    kwargs = {k: batch[k] for k in ("mm_embeds", "positions", "enc_frames")
+              if k in batch}
+    logits, _, aux = T.forward(T.cast_params(params, cfg.dtype), cfg,
+                               batch["tokens"], causal_impl="mha",
+                               remat=remat, **kwargs)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + AUX_LOSS_COEF * aux, (loss, aux)
+
+
+def train_step(state: TrainState, batch, cfg: ModelConfig, *, base_lr=3e-4,
+               remat=False):
+    """One step: gradients of ``loss_fn`` by ``torch.autograd.grad`` over
+    the parameter leaves, ``cosine_lr(step + 1)``, ``adamw_update`` (in
+    place: the returned state holds the same tensors). Metrics: loss,
+    aux_loss, grad_norm, lr (device scalars)."""
+    # differentiate through detached aliases of the masters: the state's
+    # tensors never require grad, and the update writes their storage
+    live = tree_map(lambda p: p.detach().requires_grad_(), state.params,
+                    is_leaf=torch.is_tensor)
+    with torch.enable_grad():
+        total, (loss, aux) = loss_fn(live, cfg, batch, remat=remat)
+        grads = torch.autograd.grad(total, leaves(live))
+    del live, total
+    lr = cosine_lr(state.opt.step + 1, base_lr=base_lr)
+    params, opt, gnorm = adamw_update(grads, state.opt, state.params, lr=lr)
+    metrics = {"loss": loss.detach(), "aux_loss": aux.detach(),
+               "grad_norm": gnorm, "lr": lr}
+    return TrainState(params, opt), metrics

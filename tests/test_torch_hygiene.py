@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-``src/repro_torch`` or ``chip_smoke.py``, a real-mode serve run in a fresh
-process leaves ``jax`` out of ``sys.modules``, and every module the port
-copies from the JAX package is the same program (same AST, docstrings
-aside) once its imports name ``repro_torch``."""
+``src/repro_torch`` or ``chip_smoke.py``, a real-mode serve run and a
+train step in a fresh process leave ``jax`` out of ``sys.modules``, and
+every module the port copies from the JAX package is the same program
+(same AST, docstrings aside) once its imports name ``repro_torch``."""
 import ast
 import os
 import re
@@ -27,7 +27,7 @@ COPIED = ["cache/allocator.py", "cache/__init__.py", "core/profiler.py",
           "serving/encoder_cache.py", "serving/journal.py",
           "serving/admission.py", "serving/faults.py", "serving/router.py",
           "serving/migration.py", "serving/fleet.py",
-          "configs/__init__.py"] + sorted(
+          "configs/__init__.py", "train/data.py"] + sorted(
     f"configs/{p.name}" for p in (JAXPKG / "configs").glob("*.py")
     if p.name != "__init__.py")
 
@@ -49,7 +49,9 @@ def test_every_model_module_is_checked():
              if PORT in p.parents}
     assert {"models/layers.py", "models/ssm.py", "models/xlstm.py",
             "models/transformer.py", "models/params.py",
-            "launch/serve.py", "serving/executors.py"} <= names
+            "launch/serve.py", "serving/executors.py", "train/loop.py",
+            "train/optimizer.py", "train/checkpoint.py",
+            "launch/train.py"} <= names
 
 
 def test_new_model_modules_import_alone():
@@ -122,6 +124,29 @@ def test_serve_run_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_train_step_leaves_jax_unloaded():
+    """The trainer and its launcher import, and a train step of a reduced
+    model runs on the CPU, in a fresh process without loading JAX."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.train.loop as loop, repro_torch.launch.train\n"
+        "from repro_torch.configs import get_reduced\n"
+        "cfg = get_reduced('qwen2-vl-2b')\n"
+        "st = loop.make_train_state(cfg, torch.Generator().manual_seed(0), "
+        "'cpu')\n"
+        "toks = torch.randint(1, cfg.vocab_size, (2, 9))\n"
+        "st, m = loop.train_step(st, {'tokens': toks[:, :-1], "
+        "'labels': toks[:, 1:]}, cfg)\n"
+        "assert torch.isfinite(m['loss']), m\n"
+        "bad = [k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_chip_smoke_refuses_without_cuda_or_sources(tmp_path):

@@ -4,8 +4,8 @@ G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
 queries), the decode kernels' split over keys (rows ending on a slice
 boundary, all-empty rows), and the kernels at the serving widths
 (qwen2-vl's and phi3.5-moe's paged shapes, gemma3's, whisper-base's and
-jamba's dense ones), and the page-chain migration payload of a bf16
-store on the card. Marked
+jamba's dense ones), the page-chain migration payload of a bf16 store
+on the card, and each op's refusal of autograd. Marked
 ``gpu``; without a CUDA device every test skips. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
@@ -368,3 +368,44 @@ def test_cuda_page_payload_round_trip_is_bit_exact():
                                a[rows + 1].view(torch.int16))
             assert torch.equal(a[rows + 0].view(torch.int16),
                                a[rows + 6].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_ops_refuse_autograd():
+    """On the card, each kernel op raises under autograd before it
+    launches (no kernel has a backward, and its output, written through
+    ctypes, has no autograd node), and launches under ``torch.no_grad()``
+    on the same tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+    q, k, pages = rand(2, 4, 4, 64), rand(2, 8, 2, 64), rand(4, 16, 2, 64)
+    bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([5, 20], dtype=torch.int32, device="cuda")
+    calls = {
+        "paged_attention": lambda q, kv: ops.paged_attention(
+            q[:, 0].contiguous(), kv[0], kv[0], bt, lens),
+        "paged_prefill_attention": lambda q, kv: ops.paged_prefill_attention(
+            q, kv[0], kv[0], bt, lens * 0, lens.clamp(max=4)),
+        "prefill_attention": lambda q, kv: ops.prefill_attention(
+            q, kv[1], kv[1]),
+    }
+    for name, call in calls.items():
+        for grad_q in (True, False):
+            qq = q.clone().requires_grad_(grad_q)
+            kv = (pages.clone().requires_grad_(not grad_q),
+                  k.clone().requires_grad_(not grad_q))
+            ops.reset_launch_counts()
+            with pytest.raises(RuntimeError, match=name):
+                call(qq, kv)
+            assert ops.launch_counts()[name] == 0
+            with torch.no_grad():
+                out = call(qq, kv)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()[name] == 1
+            assert not out.requires_grad and torch.isfinite(out.float()).all()
