@@ -100,7 +100,15 @@ Phases, each printing its own lines:
      bit for bit into a state made from another seed and give the same
      loss on a fixed batch, bit for bit. No training phase may launch a
      kernel: no kernel has a backward;
- 18. launches per model, a JSON line of every kernel's numbers (launches
+ 18. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
+     group it simulates the 256-device mesh on is process-global) for
+     qwen2-vl-2b x decode_32k and chatglm3-6b x prefill_32k on the single
+     mesh; each record's per-device argument bytes, collectives and
+     roofline terms are printed, and every record key must be there, the
+     tensor-parallel forward's all-reduces (two a layer and one for the
+     vocab-sharded embedding) must be its only collectives, and JAX must
+     not be loaded;
+ 19. launches per model, a JSON line of every kernel's numbers (launches
      summed over every serve and fleet phase), then the device JSON line
      last.
 
@@ -127,6 +135,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -136,11 +145,18 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if not (SRC / "repro_torch").is_dir():
+    print(f"FAIL: the port's sources are not beside this script ({SRC})",
+          file=sys.stderr)
+    sys.exit(1)
+sys.path.insert(0, str(SRC))
+# H100 SXM device memory bytes/s and dense bf16 tensor-core FLOP/s, from
+# the port's roofline model
+from repro_torch.launch.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOPS_PER_S)
 
 H, KV, HD, PAGE = 12, 2, 128, 16          # qwen2-vl-2b
 GH, GKV, GMAX, GWIN = 32, 16, 2048, 1024   # gemma3-27b, max_len, window
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2
 # and, for each query token, rms error over its (heads, dims) outputs at
 # most REL_RMS of the plain output's rms there: a decode over thousands of
@@ -2135,7 +2151,6 @@ def train_xlstm_phase(torch):
     leaf equal bit for bit to the trained state, and a forward loss on one
     fixed batch bit-identical. No kernel may launch. Returns the launch
     counts."""
-    import os
     import tempfile
 
     from repro_torch.configs import get_config
@@ -2191,14 +2206,62 @@ def train_xlstm_phase(torch):
     return counts
 
 
+DRYRUN_PAIRS = (("qwen2-vl-2b", "decode_32k"), ("chatglm3-6b", "prefill_32k"))
+DRYRUN_KEYS = {"arch", "shape", "mesh", "devices", "mode", "opts", "params",
+               "padded_heads", "orig_heads", "padded_kv", "orig_kv",
+               "lower_s", "compile_s", "flops", "bytes_accessed", "memory",
+               "collectives", "analytic", "roofline"}
+DRYRUN_CODE = """
+import json, sys
+from repro_torch.launch.dryrun import run_one
+pairs = json.loads(sys.argv[1])
+records = [run_one(a, s, "single", "", write=False) for a, s in pairs]
+print(json.dumps({"records": records, "jax_loaded": "jax" in sys.modules}))
+"""
+
+
+def dryrun_phase():
+    """The dry-run of two pairs on the simulated single-pod mesh, in a
+    subprocess: it needs no card, and its fake process group is
+    process-global."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_PAIRS)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"dry-run: exit {out.returncode}: {out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"dry-run: {len(got['records'])} pairs in "
+          f"{time.perf_counter() - t0:.1f}s (the subprocess's start "
+          f"included)", flush=True)
+    if got["jax_loaded"]:
+        fail("dry-run: jax was loaded")
+    for rec in got["records"]:
+        what = f"dry-run {rec.get('arch')} x {rec.get('shape')}"
+        if set(rec) != DRYRUN_KEYS:
+            fail(f"{what}: keys {sorted(set(rec) ^ DRYRUN_KEYS)} missing "
+                 "or extra")
+        print(f"{what} x {rec['mesh']} ({rec['devices']} devices, "
+              f"{rec['mode']}): per device argument "
+              f"{rec['memory']['argument_bytes']} bytes, output "
+              f"{rec['memory']['output_bytes']} bytes, {rec['flops']:.4e} "
+              f"FLOPs counted; collectives {json.dumps(rec['collectives'])}"
+              f"; roofline {json.dumps(rec['roofline'])}", flush=True)
+        layers = get_config(rec["arch"]).num_layers
+        want = {"all-reduce": 2 * layers + 1}
+        have = {k: v["count"] for k, v in rec["collectives"].items()}
+        if have != want:
+            fail(f"{what}: collectives {have}, expected {want} (two a "
+                 "layer and one for the embedding lookup)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also print where a serving step's time goes")
     args = ap.parse_args()
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"the port's sources are not beside this script ({SRC})")
-    sys.path.insert(0, str(SRC))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2375,6 +2438,8 @@ def main():
     torch.cuda.empty_cache()
     phase("train xlstm-125m")
     launches["train xlstm-125m"] = train_xlstm_phase(torch)
+    phase("dry-run")
+    dryrun_phase()
 
     for model, c in launches.items():
         print(f"launches, {model}: {c}")

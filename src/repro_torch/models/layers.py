@@ -9,6 +9,12 @@ projections as one matrix, the output projection flattened, the RMSNorm
 scales ``1 + w`` precomputed in f32. That keeps the per-layer op count —
 and so the host's launch overhead, which bounds a decode step — low; the
 arithmetic is the JAX package's.
+
+With sharding rules installed (the dry-run, ``models.sharding``) the
+weights are ``DTensor``s, the caller keeps q, k and v apart
+(``fuse_block(..., fuse_qkv=False)``: a concatenation along the sharded
+heads would gather them), and the activations carry the reference's
+``shard_act`` annotations, which are the identity otherwise.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch.kernels.ref import causal_mask
 
 from .config import ModelConfig
 from .rope import apply_rope_tables
+from .sharding import current_rules, einsum, replicate, shard_act
 
 NEG_INF = -1e30
 
@@ -69,15 +76,21 @@ def fuse_attn(a, cfg: ModelConfig) -> dict:
 NORMS = ("ln1", "ln2", "ln_x")
 
 
-def fuse_block(bp, cfg: ModelConfig) -> dict:
+def fuse_block(bp, cfg: ModelConfig, *, fuse_qkv: bool = True) -> dict:
     """One block's weights (a layer of the ``block_decls`` tree) regrouped
     for the forward: each RMSNorm as its f32 scale ``1 + w`` (LayerNorm
     weights and biases as they are), an ``attn`` subtree as the
     ``fuse_attn`` weights at the top level; every other subtree (``mlp``,
-    ``moe``, ``cross``, ``mamba``, ``core``) unchanged."""
+    ``moe``, ``cross``, ``mamba``, ``core``) unchanged. ``fuse_qkv=False``
+    (the dry-run) keeps ``wq``, ``wk``, ``wv`` and their biases (None
+    without) apart, for three products in ``qkv_rope``."""
     out = {}
     for name, a in bp.items():
-        if name == "attn":
+        if name == "attn" and not fuse_qkv:
+            out.update({n: a.get(n) for n in ("wq", "wk", "wv", "bq", "bk",
+                                              "bv")},
+                       wo=a["wo"].reshape(-1, cfg.d_model))
+        elif name == "attn":
             out.update(fuse_attn(a, cfg))
         elif name in NORMS and cfg.norm_style() == "rmsnorm":
             out[name] = 1.0 + a.to(torch.float32)
@@ -108,6 +121,51 @@ def qkv_proj(x, p, cfg: ModelConfig):
     return qkv.view(B, S, cfg.num_heads + 2 * cfg.num_kv_heads, cfg.hd)
 
 
+def qkv_rope(x, p, cfg: ModelConfig, rope):
+    """x (B,S,D) -> q (B,S,H,hd), k, v (B,S,KV,hd), with ``rope`` tables
+    (None: no rotation) applied to q and k: one product over the fused
+    ``wqkv``, or three over the ``wq``, ``wk``, ``wv`` that
+    ``fuse_block(..., fuse_qkv=False)`` keeps apart (the reference's
+    ``qkv_proj``)."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if "wqkv" in p:
+        qkv = qkv_proj(x, p, cfg)
+        qk = apply_rope_tables(qkv[:, :, :H + KV], rope)   # q and k together
+        return qk[:, :, :H], qk[:, :, H:], qkv[:, :, H + KV:]
+    q, k, v = (torch.einsum("bsd,dhk->bshk", x, p[w])
+               for w in ("wq", "wk", "wv"))
+    if p["bq"] is not None:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return apply_rope_tables(q, rope), apply_rope_tables(k, rope), v
+
+
+def _softmax(logits):
+    """Softmax over the last (key) dim. Under sharding rules it is written
+    out (max, exp, sum), so that keys sharded over the mesh (the
+    context-parallel cache) reduce their max and sum across it, as XLA
+    partitions it, where DTensor's softmax would gather the logits."""
+    if current_rules() is None:
+        return torch.softmax(logits, dim=-1)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _write(buf, new, at: int):
+    """``buf[:, at:at + S] = new`` in place, for a dense cache buffer
+    (B, Smax, ...). Under sharding rules, as a select over the whole
+    buffer: a slice of a sequence-sharded ``DTensor`` is a gathered copy,
+    and a write into it would be lost."""
+    S = new.shape[1]
+    if current_rules() is None:
+        buf[:, at:at + S] = new
+        return
+    pos = replicate(torch.arange(buf.shape[1], device=buf.device))
+    hit = (pos >= at) & (pos < at + S)
+    spread = torch.index_select(new, 1, torch.clamp(pos - at, 0, S - 1))
+    hit = hit.reshape((1, -1) + (1,) * (buf.ndim - 2))
+    buf.copy_(torch.where(hit, spread.to(buf.dtype), buf))
+
+
 def mha(q, k, v, mask, *, softcap: float = 0.0):
     """q (B,Tq,H,hd), k/v (B,Tk,KV,hd), mask broadcastable to (B,H,Tq,Tk)
     or, with GQA, (B,KV,G,Tq,Tk).
@@ -117,18 +175,18 @@ def mha(q, k, v, mask, *, softcap: float = 0.0):
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     if KV == H:
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
+        logits = einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
         logits = _softcap(logits / math.sqrt(hd), softcap)
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        w = torch.softmax(logits, dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", w, v)
+        w = _softmax(logits).to(q.dtype)
+        return einsum("bhqk,bkhd->bqhd", w, v)
     G = H // KV
     qg = q.reshape(B, Tq, KV, G, hd)
-    logits = torch.einsum("bqcgd,bkcd->bcgqk", qg, k).to(torch.float32)
+    logits = einsum("bqcgd,bkcd->bcgqk", qg, k).to(torch.float32)
     logits = _softcap(logits / math.sqrt(hd), softcap)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bcgqk,bkcd->bqcgd", w, v)
+    w = _softmax(logits).to(q.dtype)
+    out = einsum("bcgqk,bkcd->bqcgd", w, v)
     return out.reshape(B, Tq, H, hd)
 
 
@@ -165,23 +223,19 @@ def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
     through ``kernels.ops.prefill_attention`` (the hand-written kernel on
     the card); cross attention (``kv_override``) and the bidirectional
     encoder (``is_causal=False``) use ``mha``, as in the JAX package.
-    ``causal_impl="mha"`` sends the cache-less causal attention through
-    ``mha`` with ``causal_mask`` instead: the JAX package's non-kernel
-    branch, the one its training differentiates (no kernel has a
-    backward).
+    ``causal_impl="mha"`` sends causal attention through ``mha`` with
+    ``causal_mask`` instead — the cache-less one over the chunk, the
+    cached one over the whole buffer: the JAX package's non-kernel
+    branches, the ones its training differentiates (no kernel has a
+    backward) and its dry-run lowers.
 
     Returns (out (B, S, D), new_cache): the cache dict with ``idx + S``,
     sharing the updated buffers.
     """
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    qkv = qkv_proj(x, p, cfg)
-    v = qkv[:, :, H + KV:]
-    if kv_override is None:
-        qk = apply_rope_tables(qkv[:, :, :H + KV], rope)
-        q, k = qk[:, :, :H], qk[:, :, H:]
-    else:
-        q = qkv[:, :, :H]
+    H, hd = cfg.num_heads, cfg.hd
+    q, k, v = qkv_rope(x, p, cfg, rope if kv_override is None else None)
+    q = shard_act(q, "batch", "seq", "heads", None)
     softcap = cfg.logit_softcap
     new_cache = None
     if cache is not None:
@@ -196,30 +250,41 @@ def attention_block(x, p, cfg: ModelConfig, *, rope, q_start: int = 0,
         ks = vs = None
         if ck.dtype == torch.int8:
             (k, k_sc), (v, v_sc) = quant_kv(k), quant_kv(v)
-            cache["k_scale"][:, at:at + S] = k_sc
-            cache["v_scale"][:, at:at + S] = v_sc
+            _write(cache["k_scale"], k_sc, at)
+            _write(cache["v_scale"], v_sc, at)
             ks, vs = cache["k_scale"][:, :n], cache["v_scale"][:, :n]
-        ck[:, at:at + S] = k
-        cv[:, at:at + S] = v
-        out = kops.prefill_attention(
-            q.contiguous(), _maybe_dequant(ck[:, :n], q.dtype, ks),
-            _maybe_dequant(cv[:, :n], q.dtype, vs), q_start=idx,
-            window=window, softcap=softcap)
+        _write(ck, k, at)
+        _write(cv, v, at)
+        if causal_impl == "mha":
+            # entries beyond idx+S are unwritten -> masked off by causality
+            if ks is not None:
+                ks, vs = cache["k_scale"], cache["v_scale"]
+            mask = replicate(causal_mask(idx, S, Smax, window,
+                                         device=x.device))
+            out = mha(q, _maybe_dequant(ck, q.dtype, ks),
+                      _maybe_dequant(cv, q.dtype, vs), mask, softcap=softcap)
+        else:
+            out = kops.prefill_attention(
+                q.contiguous(), _maybe_dequant(ck[:, :n], q.dtype, ks),
+                _maybe_dequant(cv[:, :n], q.dtype, vs), q_start=idx,
+                window=window, softcap=softcap)
     elif kv_override is not None:
         ck, cv = kv_override  # cross attention (whisper decoder)
-        mask = torch.ones((S, ck.shape[1]), dtype=torch.bool,
-                          device=x.device)
+        mask = replicate(torch.ones((S, ck.shape[1]), dtype=torch.bool,
+                                    device=x.device))
         out = mha(q, ck.to(q.dtype), cv.to(q.dtype), mask, softcap=softcap)
     elif is_causal and causal_impl == "mha":
-        mask = causal_mask(q_start, S, S, window, device=x.device)
+        mask = replicate(causal_mask(q_start, S, S, window, device=x.device))
         out = mha(q, k, v, mask, softcap=softcap)
     elif is_causal:
         out = kops.prefill_attention(q.contiguous(), k, v, q_start=q_start,
                                      window=window, softcap=softcap)
     else:
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        mask = replicate(torch.ones((S, S), dtype=torch.bool,
+                                    device=x.device))
         out = mha(q, k, v, mask, softcap=softcap)
-    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return shard_act(out, "batch", "seq", "embed_act"), new_cache
 
 
 def paged_attention_block(x, p, cfg: ModelConfig, *, rope, store, ctx,
@@ -253,9 +318,8 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, rope, store, ctx,
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    qkv = qkv_proj(x, p, cfg)
-    qk = apply_rope_tables(qkv[:, :, :H + KV], rope)   # q and k together
-    q, k, v = qk[:, :, :H], qk[:, :, H:], qkv[:, :, H + KV:]
+    q, k, v = qkv_rope(x, p, cfg, rope)
+    q = shard_act(q, "batch", "seq", "heads", None)
     bt, lengths, new_lens = ctx["block_table"], ctx["lengths"], ctx["new_lens"]
     layer = ctx["layer"]
     store = store.write_slots(k, v, ctx["slots"], layer=layer)
@@ -281,7 +345,8 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, rope, store, ctx,
         mask = mask[:, None] if KV == H else mask[:, None, None]
         out = mha(q, ck.to(q.dtype), cv.to(q.dtype), mask,
                   softcap=cfg.logit_softcap)
-    return out.reshape(B, S, H * hd) @ p["wo"], store
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return shard_act(out, "batch", "seq", "embed_act"), store
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +356,18 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, rope, store, ctx,
 def mlp_block(x, p):
     """SwiGLU MLP."""
     h = F.silu(x @ p["wi"]) * (x @ p["wg"])
-    return h @ p["wo"]
+    h = shard_act(h, "batch", "seq", "mlp")
+    # the reference leaves this all-reduce to XLA's propagation; a DTensor
+    # product over the sharded mlp dim stays a partial sum until asked
+    return shard_act(h @ p["wo"], "batch", "seq", "embed_act")
 
 
 def gelu_mlp_block(x, p):
     """The encoder-decoder's two-matrix MLP, with JAX's default (tanh)
     GELU."""
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    h = shard_act(F.gelu(x @ p["wi"], approximate="tanh"), "batch", "seq",
+                  "mlp")
+    return shard_act(h @ p["wo"], "batch", "seq", "embed_act")
 
 
 def moe_route(x, router, cfg: ModelConfig, *, group_size: int = 512):
@@ -356,19 +426,27 @@ def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512):
         x.reshape(-1, G, D)
     g = xg.shape[0]
     topi, pos, keep = r["topi"], r["pos"], r["keep"]
-    gi = torch.arange(g, device=x.device)[:, None, None].expand_as(topi)
-    si = torch.arange(G, device=x.device)[None, :, None].expand_as(topi)
+    gi = replicate(torch.arange(g, device=x.device)[:, None, None]
+                   ).expand_as(topi)
+    si = replicate(torch.arange(G, device=x.device)[None, :, None]
+                   ).expand_as(topi)
     # every (token, k) is written, a dropped one into a spare slot C that
     # no product reads: no host sync on the number kept
     xe = x.new_zeros((E, g, C + 1, D))
     xe[topi, gi, torch.where(keep, pos, C)] = xg[gi, si]
-    xe = xe[:, :, :C].reshape(E, g * C, D)
+    # 'moe_group' maps to the data axis under the moe_data option: the
+    # dispatched tokens stay batch-sharded instead of replicated
+    xe = shard_act(xe[:, :, :C], "experts", "moe_group", None, "embed_act")
+    xe = xe.reshape(E, g * C, D)
     h = F.silu(torch.bmm(xe, p["wi"])) * torch.bmm(xe, p["wg"])
+    h = shard_act(h, "experts", "moe_group", "expert_mlp")
     eo = torch.bmm(h, p["wo"]).reshape(E, g, C, D)
     w = (r["topw"] * keep).to(x.dtype).to(torch.float32)   # (g, G, K)
     sel = eo[topi, gi, torch.clamp(pos, max=C - 1)].to(torch.float32)
     y = (sel * w[..., None]).sum(2).to(x.dtype)
-    y = y.reshape(B, S + pad, D)[:, :S]
+    # as in mlp_block: the expert products' partial sums, resolved here
+    y = shard_act(y.reshape(B, S + pad, D)[:, :S], "batch", "seq",
+                  "embed_act")
     # Switch aux load-balance loss
     oh = F.one_hot(topi, E).to(torch.float32)               # (g, G, K, E)
     me = oh[..., 0, :] if K == 1 else oh.mean(2)

@@ -2,9 +2,13 @@
 
 Models declare parameters as trees of :class:`ParamDecl` — shape + logical
 axis names + initializer. From one declaration tree we derive materialized
-parameters (``init_params``, drawn from a seeded ``torch.Generator``) and
-parameter counts. A tree is nested dicts and lists with ``ParamDecl``
-leaves; a materialized tree has ``torch.Tensor`` leaves at the same paths.
+parameters (``init_params``, drawn from a seeded ``torch.Generator``),
+meta-device stand-ins for the dry-run (``abstract_params``), parameter
+counts, and ``PartitionSpec`` trees via logical-axis rules
+(``param_pspecs``), which ``placements`` and ``distribute_abstract`` turn
+into ``DTensor`` shards on a ``DeviceMesh``. A tree is nested dicts and
+lists with ``ParamDecl`` leaves; a materialized tree has ``torch.Tensor``
+leaves at the same paths.
 
 ``from_jax_numpy`` is the weight bridge: ``jax.random`` streams cannot be
 reproduced in torch, so tests that hold the port against the JAX package
@@ -101,19 +105,109 @@ def init_params(decls, gen: torch.Generator, dtype=None, device="cpu"):
     return _unflatten(decls, made)
 
 
-def _unflatten(decls, leaves):
+def _unflatten(decls, leaves, is_leaf: Callable = _is_decl):
     """Rebuild ``decls``' structure from ``leaves`` in ``tree_leaves``
     order."""
     if isinstance(decls, dict):
-        filled = {k: _unflatten(decls[k], leaves) for k in sorted(decls)}
+        filled = {k: _unflatten(decls[k], leaves, is_leaf)
+                  for k in sorted(decls)}
         return {k: filled[k] for k in decls}
-    if isinstance(decls, (list, tuple)) and not _is_decl(decls):
-        return type(decls)(_unflatten(v, leaves) for v in decls)
+    if isinstance(decls, (list, tuple)) and not is_leaf(decls):
+        return type(decls)(_unflatten(v, leaves, is_leaf) for v in decls)
     return next(leaves)
+
+
+def abstract_params(decls, dtype=None):
+    """Meta-device tensor tree for the dry-run — no allocation."""
+    return tree_map_decls(
+        lambda d: torch.empty(d.shape, dtype=dtype or d.dtype, device="meta"),
+        decls)
 
 
 def param_count(decls) -> int:
     return sum(int(np.prod(d.shape)) for d in tree_leaves(decls))
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axes of a tensor: each entry None (replicated), a
+    mesh axis name, or a tuple of names (major first). The entries of
+    ``jax.sharding.PartitionSpec``, as a tuple: a one-name tuple entry
+    stands as the name, as JAX stores it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def logical_to_pspec(axes: tuple[str | None, ...], rules: dict[str, Any]) -> PartitionSpec:
+    """Map logical axis names to mesh axes via rules (MaxText-style)."""
+    entries = []
+    used: set[str] = set()
+    for name in axes:
+        mesh_ax = rules.get(name) if name is not None else None
+        # one mesh axis may only appear once in a PartitionSpec
+        if mesh_ax is not None:
+            flat = (mesh_ax,) if isinstance(mesh_ax, str) else tuple(mesh_ax)
+            if any(m in used for m in flat):
+                mesh_ax = None
+            else:
+                used.update(flat)
+        entries.append(mesh_ax)
+    return PartitionSpec(*entries)
+
+
+def param_pspecs(decls, rules: dict[str, Any]):
+    return tree_map_decls(lambda d: logical_to_pspec(d.axes, rules), decls)
+
+
+def placements(spec, mesh) -> list:
+    """``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(i)`` on each
+    mesh dim that entry ``i`` names, ``Replicate()`` on the others. An
+    entry naming several mesh dims must name them in the mesh's order
+    (major first, as ``PartitionSpec`` reads them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: entry {entry} is not in mesh order "
+                             f"{names}")
+        for d in dims:
+            out[d] = Shard(i)
+    return out
+
+
+def distribute_abstract(tree, specs, mesh):
+    """Meta ``DTensor``s of a meta tensor tree (``abstract_params``) on
+    ``mesh``, each leaf sharded by its spec in ``specs`` (a tree of the
+    same structure, ``param_pspecs``); each local shard is this rank's,
+    allocated on the meta device."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def one(t, spec):
+        pl = placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device="meta"), mesh, pl,
+            shape=t.shape, stride=t.stride(), run_check=False)
+
+    leaves = tree_leaves(tree, is_leaf=torch.is_tensor)
+    spec_leaves = tree_leaves(specs, is_leaf=lambda x: isinstance(
+        x, PartitionSpec))
+    if len(leaves) != len(spec_leaves):
+        raise ValueError(f"{len(leaves)} leaves but {len(spec_leaves)} specs")
+    made = iter([one(t, s) for t, s in zip(leaves, spec_leaves)])
+    return _unflatten(tree, made, is_leaf=torch.is_tensor)
 
 
 def from_jax_numpy(tree, decls, device="cpu", path="params"):

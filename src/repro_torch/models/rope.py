@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .sharding import replicate
+
 
 def _rotate_half(x):
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -17,8 +19,8 @@ def _rotate_half(x):
 
 def _angles(positions, dim: int, theta: float):
     """positions (..., S) -> cos/sin (..., S, dim//2)."""
-    inv_freq = 1.0 / (theta ** (torch.arange(
-        0, dim, 2, dtype=torch.float32, device=positions.device) / dim))
+    inv_freq = replicate(1.0 / (theta ** (torch.arange(
+        0, dim, 2, dtype=torch.float32, device=positions.device) / dim)))
     ang = positions[..., None].to(torch.float32) * inv_freq
     return torch.cos(ang), torch.sin(ang)
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import replicate, shard_act
 
 
 def _scan_chunk(a, b, h0):
@@ -42,6 +43,7 @@ def mamba_block(x, p, cfg: ModelConfig, *, cache=None, chunk: int = 256):
     DI, N, KC = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
     xz = x @ p["in_proj"]                                   # (B, S, 2*DI)
     xi, z = xz[..., :DI], xz[..., DI:]
+    xi = shard_act(xi, "batch", "seq", "inner")
 
     # causal depthwise conv, kernel KC
     w = p["conv_w"]                                         # (KC, DI)
@@ -54,14 +56,17 @@ def mamba_block(x, p, cfg: ModelConfig, *, cache=None, chunk: int = 256):
     xc = sum(xpad[:, i:i + S] * w[i] for i in range(KC)) + p["conv_b"]
     xc = F.silu(xc)
 
-    # SSM parameters (input-dependent)
-    dt = F.softplus((xc @ p["dt_down"]) @ p["dt_up"] + p["dt_bias"])
-    Bm = xc @ p["wB"]                                       # (B, S, N)
-    Cm = xc @ p["wC"]                                       # (B, S, N)
+    # SSM parameters (input-dependent); the products over the sharded
+    # inner dim are partial sums, resolved here while they are small
+    dt_low = shard_act(xc @ p["dt_down"], "batch", "seq", None)
+    dt = F.softplus(dt_low @ p["dt_up"] + p["dt_bias"])
+    Bm = shard_act(xc @ p["wB"], "batch", "seq", "state")   # (B, S, N)
+    Cm = shard_act(xc @ p["wC"], "batch", "seq", "state")   # (B, S, N)
     A = -torch.exp(p["A_log"].to(torch.float32))            # (DI, N)
 
     dt32, xc32 = dt.to(torch.float32), xc.to(torch.float32)
-    h = (torch.zeros((B, DI, N), dtype=torch.float32, device=x.device)
+    h = (replicate(torch.zeros((B, DI, N), dtype=torch.float32,
+                               device=x.device))
          if cache is None else cache["ssm"].to(torch.float32))
 
     def chunk_terms(dt_c, B_c, x_c):
@@ -88,4 +93,5 @@ def mamba_block(x, p, cfg: ModelConfig, *, cache=None, chunk: int = 256):
     y = y * F.silu(z)
     out = y @ p["out_proj"]
     conv_dt = cache["conv"].dtype if cache is not None else new_conv.dtype
-    return out, {"conv": new_conv.to(conv_dt), "ssm": h}
+    return shard_act(out, "batch", "seq", "embed_act"), \
+        {"conv": new_conv.to(conv_dt), "ssm": h}

@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
@@ -21,6 +22,7 @@ from .config import (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN, ENC_ATTN, MAMBA,
                      MAMBA_MOE, MLSTM, MOE_BLOCKS, SLSTM, ModelConfig)
 from .params import ParamDecl, decl, init_params, tree_map, tree_map_decls
 from .rope import rope_tables
+from .sharding import replicate, shard_act
 from .ssm import mamba_block
 from .xlstm import mlstm_block, slstm_block
 
@@ -289,7 +291,7 @@ def cast_params(params, dtype: torch.dtype):
 
 
 def layer_params(params, cfg: ModelConfig, *, release: bool = False,
-                 key: str = "stages") -> list:
+                 key: str = "stages", fuse_qkv: bool = True) -> list:
     """Per-stage, per-block lists of each layer's weights as the forward
     uses them: ``out[si][f"b{i}"][li]`` is layer ``li``'s ``fuse_block``
     dict (views of the stacked weights where the layout allows, small
@@ -299,7 +301,7 @@ def layer_params(params, cfg: ModelConfig, *, release: bool = False,
     ``release`` drops each block's stacked q/k/v projections (and biases)
     from ``params`` once its layers are fused, so the fused copy does not
     double them (2.7 B parameters at gemma3-27b's widths); the forward
-    then needs these lists."""
+    then needs these lists. ``fuse_qkv`` goes to ``layers.fuse_block``."""
     stages = cfg.stages() if key == "stages" else \
         [((ENC_ATTN,), cfg.num_encoder_layers)]
     out = []
@@ -316,7 +318,7 @@ def layer_params(params, cfg: ModelConfig, *, release: bool = False,
             per[f"b{bi}"] = [
                 L.fuse_block(tree_map(lambda t, li=li: t[li], parts,
                                       is_leaf=lambda t: isinstance(t, tuple)),
-                             cfg)
+                             cfg, fuse_qkv=fuse_qkv)
                 for li in range(reps)]
             if release and "attn" in stacked:
                 for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
@@ -367,11 +369,15 @@ def _cross_attention(h, cp, cfg, cache, enc_out):
         if cache is not None:
             cache["ck"].copy_(ck)
             cache["cv"].copy_(cv)
-    q = torch.einsum("bsd,dhk->bshk", h, cp["wq"])
-    mask = torch.ones((h.shape[1], ck.shape[1]), dtype=torch.bool,
-                      device=h.device)
+    # the reference's cross attention is its attention_block with the
+    # encoder's K/V: the same annotations
+    q = shard_act(torch.einsum("bsd,dhk->bshk", h, cp["wq"]), "batch", "seq",
+                  "heads", None)
+    mask = replicate(torch.ones((h.shape[1], ck.shape[1]), dtype=torch.bool,
+                                device=h.device))
     out = L.mha(q, ck.to(q.dtype), cv.to(q.dtype), mask, softcap=0.0)
-    return torch.einsum("bshk,hkd->bsd", out, cp["wo"])
+    return shard_act(torch.einsum("bshk,hkd->bsd", out, cp["wo"]), "batch",
+                     "seq", "embed_act")
 
 
 def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None,
@@ -431,8 +437,8 @@ def _sinusoid_at(positions, D: int):
     """positions (B, S) -> (B, S, D) sinusoidal embedding, f32."""
     pos = positions.to(torch.float32)[..., None]
     dim = torch.arange(0, D, 2, dtype=torch.float32, device=positions.device)
-    ang = pos / torch.pow(torch.tensor(10000.0, device=positions.device),
-                          dim / D)
+    ang = pos / replicate(torch.pow(
+        torch.tensor(10000.0, device=positions.device), dim / D))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
@@ -443,15 +449,16 @@ def _final_norm(x, params, cfg, suffix=""):
     return L.rms_norm(x, params["final_norm" + suffix], cfg.norm_eps)
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, *, fuse_qkv: bool = True):
     """Whisper encoder over stub conv-frontend frame embeddings (B, T, D):
     sinusoidal positions, the bidirectional ENC_ATTN blocks (attention
     through ``mha``), the final LayerNorm."""
     B, T, D = frames.shape
-    pos = torch.arange(T, device=frames.device)[None]
+    pos = replicate(torch.arange(T, device=frames.device)[None])
     x = frames + _sinusoid_at(pos, D).to(frames.dtype)
     rope = rope_tables(pos, cfg.hd, cfg.rope_theta, cfg.rope_style)
-    for bp in layer_params(params, cfg, key="enc_stages")[0]["b0"]:
+    for bp in layer_params(params, cfg, key="enc_stages",
+                           fuse_qkv=fuse_qkv)[0]["b0"]:
         x, _ = _apply_attnish(x, bp, ENC_ATTN, cfg, rope=rope, q_start=0,
                               cache=None)
     return _final_norm(x, params, cfg, "_enc")
@@ -460,7 +467,7 @@ def encode(params, cfg: ModelConfig, frames):
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             mm_embeds=None, enc_frames=None, cache=None, q_start=0,
             last_only=False, last_pos=None, attn_impl="gather", layers=None,
-            causal_impl="kernel", remat=False):
+            causal_impl="kernel", remat=False, fuse_qkv=True):
     """Unified forward.
 
     tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope; default
@@ -482,13 +489,17 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
       per row, and "new_lens" (B,) valid new tokens per row (ATTN and
       ATTN_MOE decoders only, ``paged_supported``). attn_impl ('gather' |
       'kernel') picks the paged attention backend (see
-      layers.paged_attention_block); dense-cache causal attention always
-      goes through ``kernels.ops.prefill_attention``.
-    causal_impl: the cache-less causal attention — 'kernel' (default,
-      every serving call) through ``kernels.ops.prefill_attention``, or
-      'mha' through ``layers.mha`` with a causal mask, the JAX package's
-      non-kernel branch: the one training differentiates, since no kernel
-      has a backward (``kernels.ops`` raises under autograd).
+      layers.paged_attention_block).
+    causal_impl: the causal attention with no cache or over the dense
+      cache — 'kernel' (default, every serving call) through
+      ``kernels.ops.prefill_attention``, or 'mha' through ``layers.mha``
+      with a causal mask (over the whole buffer of a dense cache), the JAX
+      package's non-kernel branches: the ones training differentiates,
+      since no kernel has a backward (``kernels.ops`` raises under
+      autograd), and the dry-run runs on its mesh.
+    fuse_qkv: False keeps each layer's q, k and v projections apart
+      (``layers.fuse_block``), for the dry-run: concatenating head-sharded
+      weights would gather them.
     remat: recompute each decoder block's activations in the backward
       (``torch.utils.checkpoint`` over each layer's block, as the JAX
       package's ``jax.checkpoint`` over each scan step); cache-less only.
@@ -514,22 +525,30 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
-        positions = (q_start + torch.arange(S, device=dev))[None].expand(B, S)
+        positions = replicate(
+            (q_start + torch.arange(S, device=dev))[None].expand(B, S))
     embed = params["embed"]
-    x = embed[tokens.long()]
+    # the lookup from a vocab-sharded table leaves partial sums: resolve
+    # them before the stub embeddings go in
+    x = shard_act(F.embedding(tokens.long(), embed), "batch", "seq",
+                  "embed_act")
     if mm_embeds is not None:
         # stub patch/frame embeddings replace the first N_mm token embeds
-        x[:, :mm_embeds.shape[1]] = mm_embeds.to(x.dtype)
+        # (out of place: a sharded tensor's gradient does not survive an
+        # in-place write into it)
+        x = torch.cat([mm_embeds.to(x.dtype), x[:, mm_embeds.shape[1]:]],
+                      dim=1)
     if cfg.is_encoder_decoder:
         x = x + _sinusoid_at(positions[..., 0] if positions.ndim == 3
                              else positions, cfg.d_model).to(x.dtype)
     enc_out = None
     if cfg.is_encoder_decoder and enc_frames is not None:
-        enc_out = encode(params, cfg, enc_frames.to(x.dtype))
+        enc_out = encode(params, cfg, enc_frames.to(x.dtype),
+                         fuse_qkv=fuse_qkv)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_style)
     if layers is None:
-        layers = layer_params(params, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+        layers = layer_params(params, cfg, fuse_qkv=fuse_qkv)
+    aux = replicate(torch.zeros((), dtype=torch.float32, device=dev))
     if paged:
         bt_, lengths, new_lens = (cache["block_table"], cache["lengths"],
                                   cache["new_lens"])
@@ -586,5 +605,5 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
         x = x[:, -1:]  # serving prefill: lm_head on the final position only
     x = _final_norm(x, params, cfg)
     head = embed.T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
+    logits = shard_act(x @ head.to(x.dtype), "batch", "seq", "vocab")
     return logits, new_cache, aux

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .sharding import einsum, replicate, shard_act
 
 
 def _mlstm_step(state, q, k, v, ig, fg, eps=1e-6):
@@ -27,8 +28,8 @@ def _mlstm_step(state, q, k, v, ig, fg, eps=1e-6):
     C = f_act[..., None, None] * C + i_act[..., None, None] * (
         k[..., :, None] * v[..., None, :])
     n = f_act[..., None] * n + i_act[..., None] * k
-    h_num = torch.einsum("bhd,bhde->bhe", q, C)
-    h_den = torch.abs(torch.einsum("bhd,bhd->bh", q, n))
+    h_num = einsum("bhd,bhde->bhe", q, C)
+    h_den = torch.abs(einsum("bhd,bhd->bh", q, n))
     h = h_num / torch.clamp(torch.maximum(h_den, torch.exp(-m_new))[..., None],
                             min=eps)
     return (C, n, m_new), h
@@ -46,6 +47,7 @@ def mlstm_block(x, p, cfg: ModelConfig, *, cache=None):
     hd = DI // H
     up = x @ p["up_proj"]                                   # (B, S, 2*DI)
     xin, z = up[..., :DI], up[..., DI:]
+    xin = shard_act(xin, "batch", "seq", "inner")
 
     def heads(w, b):
         return (xin @ w + b).reshape(B, S, H, hd).to(torch.float32)
@@ -59,9 +61,10 @@ def mlstm_block(x, p, cfg: ModelConfig, *, cache=None):
     if cache is not None:
         state = tuple(cache[s].to(torch.float32) for s in ("C", "n", "m"))
     else:
-        state = (torch.zeros((B, H, hd, hd), device=x.device),
-                 torch.zeros((B, H, hd), device=x.device),
-                 torch.full((B, H), -1e30, device=x.device))
+        state = tuple(replicate(t) for t in (
+            torch.zeros((B, H, hd, hd), device=x.device),
+            torch.zeros((B, H, hd), device=x.device),
+            torch.full((B, H), -1e30, device=x.device)))
     hs = []
     for t in range(S):
         state, h = _mlstm_step(state, q[:, t], k[:, t], v[:, t], ig[:, t],
@@ -69,7 +72,7 @@ def mlstm_block(x, p, cfg: ModelConfig, *, cache=None):
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(B, S, DI).to(x.dtype)
     h = h * F.silu(z)
-    out = h @ p["down_proj"]
+    out = shard_act(h @ p["down_proj"], "batch", "seq", "embed_act")
     return out, {"C": state[0], "n": state[1], "m": state[2]}
 
 
@@ -94,10 +97,8 @@ def slstm_block(x, p, cfg: ModelConfig, *, cache=None):
     if cache is not None:
         c, n, m, h = (cache[s].to(torch.float32) for s in ("c", "n", "m", "h"))
     else:
-        c = torch.zeros((B, H, hd), device=x.device)
-        n = torch.ones((B, H, hd), device=x.device)
-        m = torch.zeros((B, H, hd), device=x.device)
-        h = torch.zeros((B, H, hd), device=x.device)
+        c, n, m, h = (replicate(f((B, H, hd), device=x.device)) for f in
+                      (torch.zeros, torch.ones, torch.zeros, torch.zeros))
     hs = []
     for t in range(S):
         rz, ri, rf, ro = torch.einsum("bhd,hde->bhe", h, R).split(hd, dim=-1)
@@ -118,4 +119,5 @@ def slstm_block(x, p, cfg: ModelConfig, *, cache=None):
     # gated FFN
     g = F.gelu(y @ p["ff_up"], approximate="tanh")
     y = (g * (y @ p["ff_gate"])) @ p["ff_down"]
-    return y, {"c": c, "n": n, "m": m, "h": h}
+    return shard_act(y, "batch", "seq", "embed_act"), \
+        {"c": c, "n": n, "m": m, "h": h}

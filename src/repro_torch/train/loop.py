@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import init_params, tree_map
+from repro_torch.models.params import abstract_params, init_params, tree_map
 
 from .optimizer import AdamWState, adamw_init, adamw_update, cosine_lr, leaves
 
@@ -30,40 +30,52 @@ def make_train_state(cfg: ModelConfig, gen: torch.Generator,
     return TrainState(params, adamw_init(params))
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, remat=False):
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """Meta-device train state for the dry-run: parameters in their
+    declared dtype, f32 moments, a () int32 step; nothing allocated."""
+    params = abstract_params(T.model_decls(cfg))
+    zeros = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                           device="meta"),
+                     params, is_leaf=torch.is_tensor)
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    return TrainState(params, AdamWState(step, zeros, zeros))
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat=False, fuse_qkv=True):
     """(loss + AUX_LOSS_COEF * aux, (loss, aux)): the masked mean token
     NLL from an f32 log-softmax, and the MoE load-balance loss. The f32
     masters are cast to ``cfg.dtype`` here, inside the graph, so the
     gradients flow through the cast into the masters, as in the JAX
-    package's forward."""
+    package's forward. ``remat`` and ``fuse_qkv`` go to the forward."""
     kwargs = {k: batch[k] for k in ("mm_embeds", "positions", "enc_frames")
               if k in batch}
     logits, _, aux = T.forward(T.cast_params(params, cfg.dtype), cfg,
                                batch["tokens"], causal_impl="mha",
-                               remat=remat, **kwargs)
+                               remat=remat, fuse_qkv=fuse_qkv, **kwargs)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=labels.device)
+        mask = torch.ones_like(labels, dtype=torch.float32)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return loss + AUX_LOSS_COEF * aux, (loss, aux)
 
 
 def train_step(state: TrainState, batch, cfg: ModelConfig, *, base_lr=3e-4,
-               remat=False):
+               remat=False, fuse_qkv=True):
     """One step: gradients of ``loss_fn`` by ``torch.autograd.grad`` over
     the parameter leaves, ``cosine_lr(step + 1)``, ``adamw_update`` (in
     place: the returned state holds the same tensors). Metrics: loss,
-    aux_loss, grad_norm, lr (device scalars)."""
+    aux_loss, grad_norm, lr (device scalars). ``remat`` and ``fuse_qkv``
+    go to ``loss_fn``."""
     # differentiate through detached aliases of the masters: the state's
     # tensors never require grad, and the update writes their storage
     live = tree_map(lambda p: p.detach().requires_grad_(), state.params,
                     is_leaf=torch.is_tensor)
     with torch.enable_grad():
-        total, (loss, aux) = loss_fn(live, cfg, batch, remat=remat)
+        total, (loss, aux) = loss_fn(live, cfg, batch, remat=remat,
+                                     fuse_qkv=fuse_qkv)
         grads = torch.autograd.grad(total, leaves(live))
     del live, total
     lr = cosine_lr(state.opt.step + 1, base_lr=base_lr)

@@ -51,7 +51,8 @@ def test_every_model_module_is_checked():
             "models/transformer.py", "models/params.py",
             "launch/serve.py", "serving/executors.py", "train/loop.py",
             "train/optimizer.py", "train/checkpoint.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "models/sharding.py", "launch/mesh.py",
+            "launch/dryrun.py", "launch/dryrun_all.py"} <= names
 
 
 def test_new_model_modules_import_alone():
@@ -95,6 +96,61 @@ def _normalized_ast(path: Path, rename: bool) -> str:
 def test_copied_modules_are_the_reference_program(rel):
     assert _normalized_ast(JAXPKG / rel, rename=True) == \
         _normalized_ast(PORT / rel, rename=False)
+
+
+# launch/analysis.py is the reference's roofline model with its hardware
+# constants set to an H100 SXM5's: the same program once these three
+# assignments are dropped from both sides, and nothing else
+HARDWARE_CONSTANTS = {"PEAK_FLOPS", "HBM_BW", "ICI_BW"}
+
+
+def _without_constants(path: Path) -> str:
+    """``path``'s source with the module-level assignments of
+    ``HARDWARE_CONSTANTS`` dropped (each must be there)."""
+    tree = ast.parse(path.read_text())
+    names = [n.targets[0].id for n in tree.body
+             if isinstance(n, ast.Assign) and len(n.targets) == 1 and
+             isinstance(n.targets[0], ast.Name)]
+    assert HARDWARE_CONSTANTS <= set(names), path
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.Assign) and len(n.targets) == 1 and
+        isinstance(n.targets[0], ast.Name) and
+        n.targets[0].id in HARDWARE_CONSTANTS)]
+    return ast.unparse(tree)
+
+
+def test_analysis_is_the_reference_program_but_its_constants(tmp_path):
+    stripped = {}
+    for side, root in (("ref", JAXPKG), ("port", PORT)):
+        stripped[side] = tmp_path / f"{side}_analysis.py"
+        stripped[side].write_text(
+            _without_constants(root / "launch/analysis.py"))
+    assert _normalized_ast(stripped["ref"], rename=True) == \
+        _normalized_ast(stripped["port"], rename=False)
+    from repro_torch.launch import analysis
+    assert (analysis.PEAK_FLOPS, analysis.HBM_BW, analysis.ICI_BW) == \
+        (989e12, 3.35e12, 50e9)
+
+
+def test_dryrun_leaves_jax_unloaded():
+    """The dry-run runs a reduced pair on the simulated (16, 16) mesh in a
+    fresh process without loading JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.models.config import pad_for_tp\n"
+        "r = dryrun.run_one('qwen2-vl-2b', 'decode', 'single', '', "
+        "cfg=pad_for_tp(get_reduced('qwen2-vl-2b'), 16), "
+        "meta=dict(kind='decode', seq=64, batch=16), write=False)\n"
+        "assert r['collectives']['all-reduce']['count'] == 5, r\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.'))]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_serve_run_leaves_jax_unloaded():
