@@ -102,12 +102,15 @@ Phases, each printing its own lines:
      kernel: no kernel has a backward;
  18. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
      group it simulates the 256-device mesh on is process-global) for
-     qwen2-vl-2b x decode_32k and chatglm3-6b x prefill_32k on the single
-     mesh; each record's per-device argument bytes, collectives and
-     roofline terms are printed, and every record key must be there, the
-     tensor-parallel forward's all-reduces (two a layer and one for the
-     vocab-sharded embedding) must be its only collectives, and JAX must
-     not be loaded;
+     qwen2-vl-2b x decode_32k, chatglm3-6b x prefill_32k,
+     phi3.5-moe-42b-a6.6b x decode_32k, jamba-1.5-large-398b x decode_32k
+     and xlstm-125m x prefill_32k on the single mesh; each record's
+     per-device argument bytes, collectives and roofline terms are
+     printed, every record key must be there, each pair's collectives
+     must be the ones its layers issue, counted a layer
+     (``dryrun_expected``: the tests of tests/test_torch_dryrun*.py pin
+     the same arithmetic on reduced configs), and JAX must not be
+     loaded;
  19. launches per model, a JSON line of every kernel's numbers (launches
      summed over every serve and fleet phase), then the device JSON line
      last.
@@ -2206,7 +2209,10 @@ def train_xlstm_phase(torch):
     return counts
 
 
-DRYRUN_PAIRS = (("qwen2-vl-2b", "decode_32k"), ("chatglm3-6b", "prefill_32k"))
+DRYRUN_PAIRS = (("qwen2-vl-2b", "decode_32k"), ("chatglm3-6b", "prefill_32k"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                ("jamba-1.5-large-398b", "decode_32k"),
+                ("xlstm-125m", "prefill_32k"))
 DRYRUN_KEYS = {"arch", "shape", "mesh", "devices", "mode", "opts", "params",
                "padded_heads", "orig_heads", "padded_kv", "orig_kv",
                "lower_s", "compile_s", "flops", "bytes_accessed", "memory",
@@ -2220,8 +2226,41 @@ print(json.dumps({"records": records, "jax_loaded": "jax" in sys.modules}))
 """
 
 
+def dryrun_expected(cfg) -> dict:
+    """The collectives a device issues in a serving forward on the single
+    mesh, layer by layer: one all-reduce for the vocab-sharded embedding
+    lookup; an attention block's output (one all-reduce); a Mamba block's
+    dt/B/C products and output projection (two) and in_proj's halves
+    moved onto the inner dim's shards (four collective-permutes); an
+    mLSTM block's output (one), its q, k, v and two gates reduced onto
+    each rank's heads (five reduce-scatters) and up_proj's halves (four
+    permutes); an sLSTM block's output (one) and its heads gathered for
+    the FFN (one all-gather); a dense MLP (one all-reduce); a MoE (one
+    for the experts' partial sums, and two all-gathers over data: the
+    gates for the top k and the f32 dispatched tokens)."""
+    from repro_torch.models.config import (MAMBA, MAMBA_MOE, MLSTM,
+                                           MOE_BLOCKS, SLSTM)
+    per = {MLSTM: {"all-reduce": 1, "collective-permute": 4,
+                   "reduce-scatter": 5},
+           SLSTM: {"all-reduce": 1, "all-gather": 1}}
+    want = {"all-reduce": 1}
+    for period, reps in cfg.stages():
+        for bt in period * reps:
+            if bt in per:
+                add = per[bt]
+            else:
+                add = {"all-reduce": 2}          # the block and its FFN
+                if bt in (MAMBA, MAMBA_MOE):
+                    add = {"all-reduce": 3, "collective-permute": 4}
+                if bt in MOE_BLOCKS:
+                    add = dict(add, **{"all-gather": 2})
+            for k, v in add.items():
+                want[k] = want.get(k, 0) + v
+    return want
+
+
 def dryrun_phase():
-    """The dry-run of two pairs on the simulated single-pod mesh, in a
+    """The dry-run of five pairs on the simulated single-pod mesh, in a
     subprocess: it needs no card, and its fake process group is
     process-global."""
     from repro_torch.configs import get_config
@@ -2249,12 +2288,11 @@ def dryrun_phase():
               f"{rec['memory']['output_bytes']} bytes, {rec['flops']:.4e} "
               f"FLOPs counted; collectives {json.dumps(rec['collectives'])}"
               f"; roofline {json.dumps(rec['roofline'])}", flush=True)
-        layers = get_config(rec["arch"]).num_layers
-        want = {"all-reduce": 2 * layers + 1}
+        want = dryrun_expected(get_config(rec["arch"]))
         have = {k: v["count"] for k, v in rec["collectives"].items()}
         if have != want:
-            fail(f"{what}: collectives {have}, expected {want} (two a "
-                 "layer and one for the embedding lookup)")
+            fail(f"{what}: collectives {have}, expected {want} (counted a "
+                 "layer: dryrun_expected)")
 
 
 def main():

@@ -7,9 +7,9 @@ device: the step runs op by op as rank 0 would run it, DTensor inserting
 the collectives its placements need, and nothing is allocated or moved.
 So this needs no card and runs on none, by design, as the reference's
 dry-run lowers on forced host CPU devices. The model takes the
-reference's non-kernel branches (``causal_impl="mha"``, q, k and v as
-three products: ``fuse_qkv=False``), as the reference's does with its
-flash kernel off.
+reference's non-kernel branches (``causal_impl="mha"``), as the
+reference's does with its flash kernel off, and the routes
+``DRYRUN_ROUTES`` names.
 
 The record has the reference's keys. Where the reference reads XLA's
 compiled module, this reads the step it ran:
@@ -26,6 +26,10 @@ compiled module, this reads the step it ran:
   * ``collectives``: per kind, the functional collectives rank 0 issues,
     their count and their outputs' bytes (what the reference reads from
     each collective's result shape in the HLO).
+An xLSTM recurrence runs three steps (``scan="once"``), the middle one's
+collectives and FLOPs, forward and backward, counted once a middle token
+(``sharding.trips``), as the reference multiplies a While body's by its
+trip count.
 
 MUST be run as its own process: the fake process group is process-global
 and is initialised once, at the first mesh's size.
@@ -54,7 +58,7 @@ from repro_torch.models.params import (PartitionSpec, abstract_params,
                                        distribute_abstract, logical_to_pspec,
                                        param_count, param_pspecs,
                                        tree_leaves)
-from repro_torch.models.sharding import use_rules
+from repro_torch.models.sharding import reset_trips, trips, use_rules
 from repro_torch.train.loop import (TrainState, abstract_train_state,
                                     train_step)
 from repro_torch.train.optimizer import AdamWState
@@ -71,6 +75,14 @@ SHAPES = {
 LONG_OK = {"jamba-1.5-large-398b", "xlstm-125m", "gemma3-27b"}
 
 TP = 16  # model-axis degree on both meshes
+
+# the forward's routes the dry-run takes (serving and training take the
+# defaults): q, k and v as three products (a cat of head-sharded weights
+# would gather them), the reference's one-hot MoE dispatch, and each
+# xLSTM recurrence as its first and last steps and one middle step
+# counted once a middle token (the reference's While loop, whose
+# collectives its count multiplies by the trip count)
+DRYRUN_ROUTES = dict(fuse_qkv=False, moe_dispatch="onehot", scan="once")
 
 
 def runnable_pairs():
@@ -156,7 +168,7 @@ def build(arch: str, shape: str, mesh, rules, opts=frozenset(), *,
         step = distribute_abstract(state.opt.step, PartitionSpec(), mesh)
 
         def fn(st, b):
-            return train_step(st, b, cfg, remat=True, fuse_qkv=False)
+            return train_step(st, b, cfg, remat=True, **DRYRUN_ROUTES)
 
         return cfg, fn, (TrainState(params, AdamWState(step, mu, nu)), batch)
 
@@ -178,14 +190,14 @@ def build(arch: str, shape: str, mesh, rules, opts=frozenset(), *,
                 T.cast_params(p, cfg.dtype), cfg, b["tokens"],
                 positions=b.get("positions"), mm_embeds=b.get("mm_embeds"),
                 enc_frames=b.get("enc_frames"), cache=cache, q_start=0,
-                last_only=True, causal_impl="mha", fuse_qkv=False)
+                last_only=True, causal_impl="mha", **DRYRUN_ROUTES)
             return logits, new_cache
     else:
         def fn(p, cache, b):
             logits, new_cache, _ = T.forward(
                 T.cast_params(p, cfg.dtype), cfg, b["tokens"],
                 positions=b["positions"], cache=cache, causal_impl="mha",
-                fuse_qkv=False)
+                **DRYRUN_ROUTES)
             return logits, new_cache
 
     return cfg, fn, (params, cache, batch)
@@ -200,6 +212,9 @@ COLLECTIVE_KINDS = {
     "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all",
 }
+# an all-to-all in which a rank sends to at most one rank and receives
+# from at most one is a collective-permute (``sharding.halves``)
+PERMUTE = "collective-permute"
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional")
 _NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 
@@ -219,6 +234,15 @@ def local_bytes(tree) -> int:
         loc = t.to_local() if _is_dtensor(t) else t
         total += loc.numel() * loc.element_size()
     return total
+
+
+def _is_permute(args) -> bool:
+    """An ``all_to_all_single(input, output_split_sizes,
+    input_split_sizes, group)`` that pairs this rank with at most one
+    sender and one receiver."""
+    recv, send = args[1], args[2]
+    return recv is not None and send is not None and \
+        sum(1 for c in recv if c) <= 1 and sum(1 for c in send if c) <= 1
 
 
 def _step_counter():
@@ -253,12 +277,15 @@ def _step_counter():
                 name = packet.__name__
                 if name not in _NOT_COLLECTIVES:
                     kind = COLLECTIVE_KINDS.get(name, name)
+                    if kind == "all-to-all" and _is_permute(args):
+                        kind = PERMUTE
                     rec = self.collectives.setdefault(
                         kind, {"count": 0, "bytes": 0})
-                    rec["count"] += 1
-                    rec["bytes"] += local_bytes(out)
+                    n = trips()
+                    rec["count"] += n
+                    rec["bytes"] += n * local_bytes(out)
             elif packet in flop_registry:
-                self.flops += int(flop_registry[packet](
+                self.flops += trips() * int(flop_registry[packet](
                     *args, **kwargs, out_val=out))
             return out
 
@@ -268,8 +295,12 @@ def _step_counter():
 def run_step(fn, args):
     """Run ``fn(*args)`` under the counter: (outputs, collectives, flops)."""
     counter = _step_counter()
-    with counter:
-        out = fn(*args)
+    reset_trips()
+    try:
+        with counter:
+            out = fn(*args)
+    finally:
+        reset_trips()
     return out, counter.collectives, counter.flops
 
 

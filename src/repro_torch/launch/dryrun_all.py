@@ -2,9 +2,7 @@
 fake process group is initialised once, at the largest mesh's size).
 Skips pairs whose JSON already exists, so the sweep is resumable; the
 pairs that fail are listed in FAILURES.json. A pair that runs past
-``--pair-timeout`` seconds (600 by default) is stopped and listed there:
-the xLSTM blocks step through the sequence one token at a time, 32768
-steps a layer at 32k, each a dozen DTensor ops.
+``--pair-timeout`` seconds (600 by default) is stopped and listed there.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun_all [--mesh single|multi|both]
 """

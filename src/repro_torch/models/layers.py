@@ -386,18 +386,21 @@ def moe_route(x, router, cfg: ModelConfig, *, group_size: int = 512):
     E, K = cfg.num_experts, cfg.experts_per_token
     G = min(group_size, S)
     pad = (-S) % G
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-    xg = x.reshape(-1, G, D)
+    xg = _pad_seq(x, pad).reshape(-1, G, D)
     # router logits in f32, as the jitted JAX function computes them (XLA
     # keeps the bf16 product's f32 result for the f32 softmax; an eager
     # one rounds it to bf16 first, and some tokens then route elsewhere)
     logits = xg.to(torch.float32) @ router.to(torch.float32)
     gates = torch.softmax(logits, dim=-1)
     # a stable descending sort: ties go to the lower expert, as
-    # jax.lax.top_k breaks them
-    topw, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
-    topw, topi = topw[..., :K], topi[..., :K]
+    # jax.lax.top_k breaks them; over the groups the dispatch holds (under
+    # the baseline rules every group, as the reference's top_k gathers its
+    # gates over data)
+    topi = torch.sort(shard_act(gates, "moe_group", None, None), dim=-1,
+                      descending=True, stable=True)[1][..., :K]
+    # the chosen gates, exactly, by a one-hot product (differentiable on a
+    # sharded tensor, where torch 2.11's backward of sort is not)
+    topw = (F.one_hot(topi, E).to(gates.dtype) * gates[..., None, :]).sum(-1)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     C = max(1, int(math.ceil(G * K / E * cfg.capacity_factor)))
     oh = F.one_hot(topi.reshape(topi.shape[0], G * K), E)   # (g, G*K, E)
@@ -407,14 +410,19 @@ def moe_route(x, router, cfg: ModelConfig, *, group_size: int = 512):
             "topw": topw, "pos": pos, "keep": pos < C}
 
 
-def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512):
-    """Capacity-based top-k MoE: the JAX package's function, with the
-    one-hot dispatch and combine einsums replaced by index ops on the kept
-    (expert, slot) rows (an empty slot's expert output is exactly zero and
-    enters no token's sum, as in the einsums). Expert products run in the
-    compute dtype, one batched product per weight over every group's
-    slots; each token's K outputs are combined in f32 with the weights
-    rounded to the compute dtype, then rounded once.
+def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512,
+              dispatch: str = "index"):
+    """Capacity-based top-k MoE: the JAX package's function. ``dispatch``
+    picks how tokens reach their (expert, slot) rows and come back:
+    "index" (serving and training) replaces the one-hot dispatch and
+    combine einsums by index ops on the kept rows (an empty slot's expert
+    output is exactly zero and enters no token's sum, as in the einsums);
+    expert products run in the compute dtype, one batched product per
+    weight over every group's slots; each token's K outputs are combined
+    in f32 with the weights rounded to the compute dtype, then rounded
+    once. "onehot" (the dry-run) is the reference's einsums themselves
+    (``_moe_onehot``), which a sharded step runs with the reference's
+    collectives.
 
     Returns (out (B, S, D), aux) with the Switch load-balance loss aux
     (f32 scalar)."""
@@ -422,8 +430,11 @@ def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512):
     E, K = cfg.num_experts, cfg.experts_per_token
     r = moe_route(x, p["router"], cfg, group_size=group_size)
     G, C, pad = r["G"], r["C"], r["pad"]
-    xg = F.pad(x, (0, 0, 0, pad)).reshape(-1, G, D) if pad else \
-        x.reshape(-1, G, D)
+    xg = _pad_seq(x, pad).reshape(-1, G, D)
+    if dispatch == "onehot":
+        return _moe_onehot(x, xg, p, r, E), _moe_aux(r, E, K)
+    if dispatch != "index":
+        raise ValueError(f"dispatch {dispatch!r}: 'index' or 'onehot'")
     g = xg.shape[0]
     topi, pos, keep = r["topi"], r["pos"], r["keep"]
     gi = replicate(torch.arange(g, device=x.device)[:, None, None]
@@ -447,9 +458,56 @@ def moe_block(x, p, cfg: ModelConfig, *, group_size: int = 512):
     # as in mlp_block: the expert products' partial sums, resolved here
     y = shard_act(y.reshape(B, S + pad, D)[:, :S], "batch", "seq",
                   "embed_act")
-    # Switch aux load-balance loss
-    oh = F.one_hot(topi, E).to(torch.float32)               # (g, G, K, E)
+    return y, _moe_aux(r, E, K)
+
+
+def _pad_seq(x, pad: int):
+    """x (B, S, D) with ``pad`` zero tokens appended along the sequence
+    (a concatenation, which a sharded tensor takes as it is)."""
+    if not pad:
+        return x
+    B, _, D = x.shape
+    return torch.cat([x, x.new_zeros((B, pad, D))], dim=1)
+
+
+def _moe_onehot(x, xg, p, r, E: int):
+    """``moe_block``'s expert pass as the reference writes it: the
+    (g, G, E, C) one-hot dispatch built in f32 from ``moe_route``'s
+    choice, the dispatch einsum in f32, the expert products and the
+    combine einsum in the compute dtype, with the reference's
+    ``shard_act`` points (the dispatched tokens cross the mesh in f32
+    before they are rounded, as XLA moves them)."""
+    B, S, D = x.shape
+    G, C, pad = r["G"], r["C"], r["pad"]
+    f32 = torch.float32
+    oh = F.one_hot(r["topi"], E).to(f32)                    # (g, G, K, E)
+    # a (token, k) past its expert's capacity matches no slot: dropped
+    slot = (r["pos"][..., None] == replicate(
+        torch.arange(C, device=x.device))).to(f32)          # (g, G, K, C)
+    disp = einsum("gske,gskc->gsec", oh, slot)              # (g, G, E, C)
+    combine = disp * (oh * r["topw"][..., None]).sum(2)[..., None]
+    xe = einsum("gsd,gsec->gecd", xg.to(f32), disp)
+    xe = shard_act(xe, "moe_group", "experts", None, "embed_act").to(x.dtype)
+    h = F.silu(einsum("gecd,edf->gecf", xe, p["wi"])) * \
+        einsum("gecd,edf->gecf", xe, p["wg"])
+    h = shard_act(h, "moe_group", "experts", None, "expert_mlp")
+    # the expert products' partial sums, resolved on this rank's groups
+    # before the combine, as XLA resolves them
+    eo = shard_act(einsum("gecf,efd->gecd", h, p["wo"]), "batch",
+                   "experts", None, "embed_act")
+    y = einsum("gecd,gsec->gsd", eo, combine.to(eo.dtype))
+    y = y.to(x.dtype).reshape(B, S + pad, D)[:, :S]
+    return shard_act(y, "batch", "seq", "embed_act")
+
+
+def _moe_aux(r, E: int, K: int):
+    """The Switch load-balance loss of ``moe_route``'s choice (f32)."""
+    oh = F.one_hot(r["topi"], E).to(torch.float32)          # (g, G, K, E)
     me = oh[..., 0, :] if K == 1 else oh.mean(2)
     density, density_proxy = me.mean(1), r["gates"].mean(1)
-    aux = (density * density_proxy).sum(-1).mean() * (E ** 2) / (E * 1.0)
-    return y, aux.to(torch.float32)
+    # the mean over groups as a sum and a division: over groups sharded on
+    # the mesh it stays a partial sum (torch 2.11 cannot add a partial
+    # mean to one)
+    per_group = (density * density_proxy).sum(-1)
+    aux = per_group.sum() / per_group.numel() * (E ** 2) / (E * 1.0)
+    return aux.to(torch.float32)

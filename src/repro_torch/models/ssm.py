@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .sharding import replicate, shard_act
+from .sharding import halves, replicate, shard_act
 
 
 def _scan_chunk(a, b, h0):
@@ -41,8 +41,7 @@ def mamba_block(x, p, cfg: ModelConfig, *, cache=None, chunk: int = 256):
     as new tensors: the caller writes them back."""
     B, S, D = x.shape
     DI, N, KC = cfg.d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
-    xz = x @ p["in_proj"]                                   # (B, S, 2*DI)
-    xi, z = xz[..., :DI], xz[..., DI:]
+    xi, z = halves(x @ p["in_proj"])                        # (B, S, DI) x 2
     xi = shard_act(xi, "batch", "seq", "inner")
 
     # causal depthwise conv, kernel KC
@@ -51,17 +50,19 @@ def mamba_block(x, p, cfg: ModelConfig, *, cache=None, chunk: int = 256):
         prev = cache["conv"].to(xi.dtype)                   # (B, KC-1, DI)
         xpad = torch.cat([prev, xi], dim=1)
     else:
-        xpad = F.pad(xi, (0, 0, KC - 1, 0))
+        xpad = torch.cat([xi.new_zeros((B, KC - 1, DI)), xi], dim=1)
     new_conv = xpad[:, -(KC - 1):]
     xc = sum(xpad[:, i:i + S] * w[i] for i in range(KC)) + p["conv_b"]
     xc = F.silu(xc)
 
     # SSM parameters (input-dependent); the products over the sharded
-    # inner dim are partial sums, resolved here while they are small
-    dt_low = shard_act(xc @ p["dt_down"], "batch", "seq", None)
+    # inner dim are partial sums, resolved here while they are small, side
+    # by side in one all-reduce, as XLA resolves them
+    R = p["dt_down"].shape[1]
+    dBC = shard_act(torch.cat([xc @ p["dt_down"], xc @ p["wB"],
+                               xc @ p["wC"]], dim=-1), "batch", "seq", None)
+    dt_low, Bm, Cm = dBC[..., :R], dBC[..., R:R + N], dBC[..., R + N:]
     dt = F.softplus(dt_low @ p["dt_up"] + p["dt_bias"])
-    Bm = shard_act(xc @ p["wB"], "batch", "seq", "state")   # (B, S, N)
-    Cm = shard_act(xc @ p["wC"], "batch", "seq", "state")   # (B, S, N)
     A = -torch.exp(p["A_log"].to(torch.float32))            # (DI, N)
 
     dt32, xc32 = dt.to(torch.float32), xc.to(torch.float32)

@@ -11,7 +11,9 @@ forward walks the repeats with a Python loop.
 """
 from __future__ import annotations
 
+import functools
 import math
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +24,7 @@ from .config import (ATTN, ATTN_L, ATTN_MOE, DEC_ATTN, ENC_ATTN, MAMBA,
                      MAMBA_MOE, MLSTM, MOE_BLOCKS, SLSTM, ModelConfig)
 from .params import ParamDecl, decl, init_params, tree_map, tree_map_decls
 from .rope import rope_tables
-from .sharding import replicate, shard_act
+from .sharding import replicate, shard_act, unshard
 from .ssm import mamba_block
 from .xlstm import mlstm_block, slstm_block
 
@@ -331,12 +333,13 @@ def layer_params(params, cfg: ModelConfig, *, release: bool = False,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _ffn(x, bp, bt, cfg):
-    """The block's second half: norm ``ln2``, then the MoE, the
-    encoder-decoder's GELU MLP or the SwiGLU MLP, added to x; (x, aux)."""
+def _ffn(x, bp, bt, cfg, moe_dispatch="index"):
+    """The block's second half: norm ``ln2``, then the MoE (its
+    ``dispatch`` route ``moe_dispatch``), the encoder-decoder's GELU MLP
+    or the SwiGLU MLP, added to x; (x, aux)."""
     h = L.norm(x, bp, cfg, "ln2")
     if bt in MOE_BLOCKS:
-        out, aux = L.moe_block(h, bp["moe"], cfg)
+        out, aux = L.moe_block(h, bp["moe"], cfg, dispatch=moe_dispatch)
         return x + out, aux
     if cfg.is_encoder_decoder:
         return x + L.gelu_mlp_block(h, bp["mlp"]), None
@@ -381,7 +384,7 @@ def _cross_attention(h, cp, cfg, cache, enc_out):
 
 
 def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None,
-                   causal_impl="kernel"):
+                   causal_impl="kernel", moe_dispatch="index"):
     """Attention-family block (ATTN, ATTN_L, ATTN_MOE, ENC_ATTN, DEC_ATTN)
     with the dense slot cache of this layer (written in place) or none:
     (x, aux)."""
@@ -393,7 +396,7 @@ def _apply_attnish(x, bp, bt, cfg, *, rope, q_start, cache, enc_out=None,
     if bt == DEC_ATTN:
         h = L.norm(x, bp, cfg, "ln_x")
         x = x + _cross_attention(h, bp["cross"], cfg, cache, enc_out)
-    return _ffn(x, bp, bt, cfg)
+    return _ffn(x, bp, bt, cfg, moe_dispatch)
 
 
 def _write_state(cache, new):
@@ -404,24 +407,25 @@ def _write_state(cache, new):
 
 
 def _apply_block(x, bp, bt, cfg, *, rope, q_start, cache, enc_out,
-                 causal_impl="kernel"):
+                 causal_impl="kernel", moe_dispatch="index", scan="loop"):
     """One block on the dense slot cache or with none: (x, aux or None)."""
+    bp = unshard(bp)
     if bt in (MAMBA, MAMBA_MOE):
         h = L.norm(x, bp, cfg, "ln1")
         state = None if cache is None else \
             {k: cache[k] for k in ("conv", "ssm")}
         out, new = mamba_block(h, bp["mamba"], cfg, cache=state)
         _write_state(state, new)
-        return _ffn(x + out, bp, bt, cfg)
+        return _ffn(x + out, bp, bt, cfg, moe_dispatch)
     if bt in (MLSTM, SLSTM):
         block = mlstm_block if bt == MLSTM else slstm_block
         out, new = block(L.norm(x, bp, cfg, "ln1"), bp["core"], cfg,
-                         cache=cache)
+                         cache=cache, scan=scan)
         _write_state(cache, new)
         return x + out, None
     return _apply_attnish(x, bp, bt, cfg, rope=rope, q_start=q_start,
                           cache=cache, enc_out=enc_out,
-                          causal_impl=causal_impl)
+                          causal_impl=causal_impl, moe_dispatch=moe_dispatch)
 
 
 def dense_supported(cfg: ModelConfig) -> bool:
@@ -443,10 +447,11 @@ def _sinusoid_at(positions, D: int):
 
 
 def _final_norm(x, params, cfg, suffix=""):
+    w = unshard(params["final_norm" + suffix])
     if cfg.norm_style() == "layernorm":
-        return L.layer_norm(x, params["final_norm" + suffix],
-                            params["final_norm_b" + suffix], cfg.norm_eps)
-    return L.rms_norm(x, params["final_norm" + suffix], cfg.norm_eps)
+        return L.layer_norm(x, w, unshard(params["final_norm_b" + suffix]),
+                            cfg.norm_eps)
+    return L.rms_norm(x, w, cfg.norm_eps)
 
 
 def encode(params, cfg: ModelConfig, frames, *, fuse_qkv: bool = True):
@@ -459,15 +464,16 @@ def encode(params, cfg: ModelConfig, frames, *, fuse_qkv: bool = True):
     rope = rope_tables(pos, cfg.hd, cfg.rope_theta, cfg.rope_style)
     for bp in layer_params(params, cfg, key="enc_stages",
                            fuse_qkv=fuse_qkv)[0]["b0"]:
-        x, _ = _apply_attnish(x, bp, ENC_ATTN, cfg, rope=rope, q_start=0,
-                              cache=None)
+        x, _ = _apply_attnish(x, unshard(bp), ENC_ATTN, cfg, rope=rope,
+                              q_start=0, cache=None)
     return _final_norm(x, params, cfg, "_enc")
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             mm_embeds=None, enc_frames=None, cache=None, q_start=0,
             last_only=False, last_pos=None, attn_impl="gather", layers=None,
-            causal_impl="kernel", remat=False, fuse_qkv=True):
+            causal_impl="kernel", remat=False, fuse_qkv=True,
+            moe_dispatch="index", scan="loop"):
     """Unified forward.
 
     tokens: (B, S) int. positions: (B,S) or (B,S,3) for mrope; default
@@ -500,6 +506,12 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     fuse_qkv: False keeps each layer's q, k and v projections apart
       (``layers.fuse_block``), for the dry-run: concatenating head-sharded
       weights would gather them.
+    moe_dispatch: the MoE blocks' route, ``layers.moe_block``'s
+      ``dispatch``: "index" (default) or the reference's one-hot einsums,
+      "onehot" (the dry-run).
+    scan: the xLSTM blocks' recurrence, ``xlstm.recurrence``'s ``mode``:
+      "loop" (default, every step) or "once" (the dry-run: the first and
+      last steps, and one middle step counted once a middle token).
     remat: recompute each decoder block's activations in the backward
       (``torch.utils.checkpoint`` over each layer's block, as the JAX
       package's ``jax.checkpoint`` over each scan step); cache-less only.
@@ -527,7 +539,9 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     if positions is None:
         positions = replicate(
             (q_start + torch.arange(S, device=dev))[None].expand(B, S))
-    embed = params["embed"]
+    # under FSDP rules the table is gathered over data first, for the
+    # lookup (its rows then meet batch-sharded tokens) and a tied head
+    embed = unshard(params["embed"])
     # the lookup from a vocab-sharded table leaves partial sums: resolve
     # them before the stub embeddings go in
     x = shard_act(F.embedding(tokens.long(), embed), "batch", "seq",
@@ -548,7 +562,7 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta, cfg.rope_style)
     if layers is None:
         layers = layer_params(params, cfg, fuse_qkv=fuse_qkv)
-    aux = replicate(torch.zeros((), dtype=torch.float32, device=dev))
+    auxes = []      # the MoE blocks' load-balance losses
     if paged:
         bt_, lengths, new_lens = (cache["block_table"], cache["lengths"],
                                   cache["new_lens"])
@@ -568,7 +582,7 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                         ctx=dict(ctx, slots=slots[name], layer=li),
                         attn_impl=attn_impl)
                     if a is not None:
-                        aux = aux + a
+                        auxes.append(a)
         new_cache = {"stages": cache["stages"], "block_table": bt_,
                      "lengths": ctx["totals"], "new_lens": new_lens}
     else:
@@ -583,7 +597,8 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                                cache["stages"][si][name].items()}
                         blk["idx"] = idx
                     kw = dict(rope=rope, q_start=q_start, cache=blk,
-                              enc_out=enc_out, causal_impl=causal_impl)
+                              enc_out=enc_out, causal_impl=causal_impl,
+                              moe_dispatch=moe_dispatch, scan=scan)
                     if remat:
                         x, a = checkpoint(_apply_block, x,
                                           layers[si][name][li], bt, cfg,
@@ -592,11 +607,13 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
                         x, a = _apply_block(x, layers[si][name][li], bt,
                                             cfg, **kw)
                     if a is not None:
-                        aux = aux + a
+                        auxes.append(a)
         new_cache = None if cache is None else {
             "stages": cache["stages"],
             "idx": torch.tensor(idx + S, dtype=torch.int32)}
 
+    aux = functools.reduce(operator.add, auxes) if auxes else replicate(
+        torch.zeros((), dtype=torch.float32, device=dev))
     if last_pos is not None:
         # packed ragged prefill: each row's last real position only
         idx_ = last_pos.long()[:, None, None].expand(B, 1, x.shape[-1])
@@ -604,6 +621,6 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     elif last_only:
         x = x[:, -1:]  # serving prefill: lm_head on the final position only
     x = _final_norm(x, params, cfg)
-    head = embed.T if cfg.tie_embeddings else params["lm_head"]
+    head = unshard(embed.T if cfg.tie_embeddings else params["lm_head"])
     logits = shard_act(x @ head.to(x.dtype), "batch", "seq", "vocab")
     return logits, new_cache, aux

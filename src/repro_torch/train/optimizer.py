@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.sharding import settle, total
 
 
 class AdamWState(NamedTuple):
@@ -45,10 +46,11 @@ def adamw_update(grads, state: AdamWState, params, *, lr=3e-4, b1=0.9,
     a list. Writes ``params``, ``state.mu`` and ``state.nu`` in place and
     returns (params, the state with its step advanced, the global gradient
     norm before clipping)."""
-    flat_g = leaves(grads)
+    # each gradient laid out as its parameter (under sharding rules)
+    flat_g = settle(leaves(grads), leaves(params))
     # global-norm clip
-    gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum()
-                           for g in flat_g))
+    gnorm = torch.sqrt(total(g.to(torch.float32).square().sum()
+                             for g in flat_g))
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     t = step.to(torch.float32)
