@@ -23,7 +23,10 @@ Phases, each printing its own lines:
      same times (SDPA with a boolean mask and GQA as the library call),
      the same limits, the split plan of each decode and the tile plan of
      each chunk; then the shapes the other families bring: the paged
-     kernels at phi3.5-moe's GQA group 4 (H=32, KV=8) and
+     kernels at phi3.5-moe's GQA group 4 (H=32, KV=8) and at the
+     published head groups of chatglm3-6b (32/2, G=16), deepseek-coder-33b
+     (56/8, G=7), qwen1.5-110b (64/8, G=8) and grok-1-314b (48/8, G=6,
+     softcap 30), all at hd 128 and qwen2-vl's serving lengths, and
      prefill_attention at whisper-base's (H = KV = 8, hd 64) and jamba's
      (H=64, KV=8) attention;
   5. serve: full-width qwen2-vl-2b (28 layers, bf16, max_len 4096,
@@ -84,40 +87,51 @@ Phases, each printing its own lines:
  14. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
      width and depth, on the dense-slot path (8 and 6 MH requests);
      whisper must launch prefill_attention, xlstm no kernel;
- 15. train check: full-width qwen2-vl-2b cut to 2 layers (f32 masters
+ 15. the four attention and MoE decoders not served above, each at its
+     published width and head groups on the batched paged path
+     (max_len 4096, 8 MH requests at 2 req/s): chatglm3-6b whole (28
+     layers), deepseek-coder-33b whole (62 layers, 66.7 GB, with 1024 KV
+     pages: four 4096-token windows, so max_num_seqs 4), qwen1.5-110b at
+     20 of 80 layers and grok-1-314b at 6 of 64 (8 experts top-2, d_ff
+     32768, softcap 30); each must finish every request with tokens,
+     launch both paged kernels and not prefill_attention, and pass the
+     model check of 6; grok-1 also the moe_block check of 12. Each prints
+     the split and tile plans its kernels took;
+ 16. train check: full-width qwen2-vl-2b cut to 2 layers (f32 masters
      from a seed, q/k/v at fan-in D), one train_step on the card and on
      the CPU (B=1, S=256 with a 128-unit stub image at M-RoPE positions),
      in f32 (loss, grad norm, every gradient leaf within 1e-3 of its max,
      parameters within 2 lr) and in bf16 (the card no further from the
      CPU's f32 than the CPU's bf16 is); prefill_attention on a query that
      requires grad must raise;
- 16. train qwen2-vl-2b: full width and depth (1.777 B parameters, f32
+ 17. train qwen2-vl-2b: full width and depth (1.777 B parameters, f32
      masters and moments, bf16 compute), 5 train steps at B=2, S=1024
      with a 512-unit stub image, then two with remat; each step's loss,
      grad norm, lr, seconds, tokens/s and peak device memory;
- 17. train xlstm-125m: the training launcher with its default arch at
+ 18. train xlstm-125m: the training launcher with its default arch at
      full size, 20 steps at B=4, S=64 with a checkpoint, which must load
      bit for bit into a state made from another seed and give the same
      loss on a fixed batch, bit for bit. No training phase may launch a
      kernel: no kernel has a backward;
- 18. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
+ 19. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
      group it simulates the 256-device mesh on is process-global) for
      qwen2-vl-2b x decode_32k, chatglm3-6b x prefill_32k,
-     phi3.5-moe-42b-a6.6b x decode_32k, jamba-1.5-large-398b x decode_32k
-     and xlstm-125m x prefill_32k on the single mesh; each record's
-     per-device argument bytes, collectives and roofline terms are
-     printed, every record key must be there, each pair's collectives
-     must be the ones its layers issue, counted a layer
-     (``dryrun_expected``: the tests of tests/test_torch_dryrun*.py pin
-     the same arithmetic on reduced configs), and JAX must not be
-     loaded;
- 19. launches per model, a JSON line of every kernel's numbers (launches
+     phi3.5-moe-42b-a6.6b x decode_32k, jamba-1.5-large-398b x decode_32k,
+     xlstm-125m x prefill_32k and whisper-base x train_4k on the single
+     mesh; each record's per-device argument bytes, collectives and
+     roofline terms are printed, every record key must be there, each
+     serving pair's collectives must be the ones its layers issue,
+     counted a layer (``dryrun_expected``: the tests of
+     tests/test_torch_dryrun*.py pin the same arithmetic on reduced
+     configs), the train pair's the record torch 2.13 gives
+     (``DRYRUN_TRAIN_EXPECTED``), and JAX must not be loaded;
+ 20. launches per model, a JSON line of every kernel's numbers (launches
      summed over every serve and fleet phase), then the device JSON line
      last.
 
-Each serve phase of 11-14 prints TTFT per class, tokens/s, peak device
+Each serve phase of 11-15 prints TTFT per class, tokens/s, peak device
 memory, its launches, and the host enqueue, enqueue-plus-device and
-device (profiler) time of a decode step (and, for phi3.5-moe, of a
+device (profiler) time of a decode step (and, on the paged path, of a
 512-token prefill step).
 
 ``--profile`` adds a profiler table of one full-width qwen2-vl-2b train
@@ -295,7 +309,7 @@ def boundary_lengths(mod, B):
 
 
 def check_decode(torch, mod, gen, lengths, flush, label,
-                 shape=(H, KV, HD)):
+                 shape=(H, KV, HD), softcap=0.0):
     B = len(lengths)
     maxp = 4096 // PAGE
     n_pages = B * maxp + 64
@@ -305,9 +319,10 @@ def check_decode(torch, mod, gen, lengths, flush, label,
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn((B, h, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
-    out = mod.paged_attention(q, kp, vp, bt, ln)
+    cap = dict(softcap=softcap)
+    out = mod.paged_attention(q, kp, vp, bt, ln, **cap)
     torch.cuda.synchronize()
-    ref = mod.plain(q.float(), kp.float(), vp.float(), bt, ln)
+    ref = mod.plain(q.float(), kp.float(), vp.float(), bt, ln, **cap)
     zero_rows = [i for i, n in enumerate(lengths) if n == 0]
     if zero_rows and out[zero_rows].abs().max().item() != 0.0:
         fail("decode: length-0 rows are not exact zeros")
@@ -318,23 +333,27 @@ def check_decode(torch, mod, gen, lengths, flush, label,
     mask = (torch.arange(T, device="cuda")[None, :] <
             ln.long()[:, None])[:, None, None, :]
     qs = q[:, :, None, :]
-    ms = time_ms(torch, lambda: mod.paged_attention(q, kp, vp, bt, ln),
+    ms = time_ms(torch, lambda: mod.paged_attention(q, kp, vp, bt, ln, **cap),
                  flush=flush)
-    plain_ms = time_ms(torch, lambda: mod.plain(q, kp, vp, bt, ln), reps=5)
-    lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qs, k_ctx, v_ctx, mask),
-                     flush=flush)
+    plain_ms = time_ms(torch, lambda: mod.plain(q, kp, vp, bt, ln, **cap),
+                       reps=5)
+    lib_ms = None      # SDPA has no softcap: no library call for it
+    if not softcap:
+        lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qs, k_ctx, v_ctx,
+                                                  mask), flush=flush)
     live = sum(lengths)
     bytes_ = (live * kv * hd * 2 * 2 + 2 * q.numel() * 2 + bt.numel() * 4
               + B * 4)
     flops = 4 * live * h * hd
     n, chunk = mod.split_plan(B, kv, maxp * PAGE, PAGE)
     return _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
-                f"decode {label}, B={B} contexts<= {max(lengths)} "
+                f"decode {label}, H={h} KV={kv} hd={hd} softcap={softcap}, "
+                f"B={B} contexts<= {max(lengths)} "
                 f"[split: n_split={n} chunk={chunk} blocks={B * kv * n}]")
 
 
 def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush,
-                  shape=(H, KV, HD)):
+                  shape=(H, KV, HD), softcap=0.0):
     from repro_torch.kernels import tiles
     B = len(q_start)
     maxp = 4096 // PAGE
@@ -346,13 +365,14 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush,
     nl_t = torch.tensor(new_lens, dtype=torch.int32, device="cuda")
     q = torch.randn((B, Sq, h, hd), generator=gen, device="cuda").to(
         torch.bfloat16)
-    out = mod.paged_prefill_attention(q, kp, vp, bt, qs_t, nl_t)
+    cap = dict(softcap=softcap)
+    out = mod.paged_prefill_attention(q, kp, vp, bt, qs_t, nl_t, **cap)
     torch.cuda.synchronize()
-    ref = mod.plain(q.float(), kp.float(), vp.float(), bt, qs_t, nl_t)
+    ref = mod.plain(q.float(), kp.float(), vp.float(), bt, qs_t, nl_t, **cap)
     pad = torch.arange(Sq, device="cuda")[None, :] >= nl_t.long()[:, None]
     if pad.any() and out[pad].abs().max().item() != 0.0:
         fail("prefill: padding queries are not exact zeros")
-    err, rel = compare(out, ref, "prefill")
+    err, rel = compare(out, ref, f"prefill H={h} KV={kv} softcap={softcap}")
     T = maxp * PAGE
     k_ctx = kp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
     v_ctx = vp[bt.long()].reshape(B, T, kv, hd).transpose(1, 2)
@@ -362,11 +382,13 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush,
     mask = ((kpos <= qpos[:, :, None]) & (kpos < total))[:, None]
     qt = q.transpose(1, 2)
     ms = time_ms(torch, lambda: mod.paged_prefill_attention(
-        q, kp, vp, bt, qs_t, nl_t), flush=flush)
-    plain_ms = time_ms(torch, lambda: mod.plain(q, kp, vp, bt, qs_t, nl_t),
-                       reps=5)
-    lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qt, k_ctx, v_ctx, mask),
-                     flush=flush)
+        q, kp, vp, bt, qs_t, nl_t, **cap), flush=flush)
+    plain_ms = time_ms(torch, lambda: mod.plain(q, kp, vp, bt, qs_t, nl_t,
+                                                **cap), reps=5)
+    lib_ms = None      # SDPA has no softcap: no library call for it
+    if not softcap:
+        lib_ms = time_ms(torch, lambda: _gqa_sdpa(torch, qt, k_ctx, v_ctx,
+                                                  mask), flush=flush)
     live = sum(s + n for s, n in zip(q_start, new_lens))
     pairs = sum((s + i + 1) for s, n in zip(q_start, new_lens)
                 for i in range(n))
@@ -383,14 +405,32 @@ def check_prefill(torch, mod, gen, q_start, new_lens, Sq, flush,
                 walks.append((min(bq, Sq - t * bq) * G, s + last + 1))
     blk = block_bound_ms(walks, hd)
     host = host_us(torch, lambda: mod.paged_prefill_attention(
-        q, kp, vp, bt, qs_t, nl_t))
+        q, kp, vp, bt, qs_t, nl_t, **cap))
     row = _row(err, rel, ms, plain_ms, lib_ms, bytes_, flops,
-               f"prefill B={B} Sq={Sq} q_start={q_start} "
+               f"prefill H={h} KV={kv} hd={hd} softcap={softcap}, "
+               f"B={B} Sq={Sq} q_start={q_start} "
                f"new_lens={new_lens} [tiles: BQ={bq} x {n_tiles}, "
                f"{n_tiles * B * kv} blocks]")
     print(f"  heaviest block's bound {blk:.4f} ms (one SM's share of the "
           f"peak); wrapper host time {host:.1f} us a call", flush=True)
     return row
+
+
+def four_kernel_rows(torch, dec, pre, gen, flush):
+    """Both paged kernels at the published head groups of the four
+    decoders of phase 15 (``FOUR``) and qwen2-vl's serving lengths: G=16
+    at KV=2, an odd G=7 (BQ=18: 126 of 128 rows, both chunks end
+    mid-tile), G=8, and G=6 with grok-1's softcap 30."""
+    from repro_torch.configs import get_config
+    for arch, _, _ in FOUR:
+        cfg = get_config(arch)
+        shape = (cfg.num_heads, cfg.num_kv_heads, cfg.hd)
+        check_decode(torch, dec, gen, DECODE_LENGTHS, flush,
+                     f"B=16 mixed, {arch}", shape=shape,
+                     softcap=cfg.logit_softcap)
+        check_prefill(torch, pre, gen, [0, 1024, 3584, 0],
+                      [512, 300, 512, 0], 512, flush, shape=shape,
+                      softcap=cfg.logit_softcap)
 
 
 SM_COUNT = 132                 # H100 SXM streaming multiprocessors
@@ -1308,8 +1348,8 @@ def gemma_model_check(torch, executor, depth=6, prompt=1536):
 
 
 # ---------------------------------------------------------------------------
-# the other decoder families: phi3.5-moe (paged), jamba, whisper, xlstm
-# (dense slots)
+# the other decoder families: phi3.5-moe and the four decoders of phase
+# 15 (paged), jamba, whisper, xlstm (dense slots)
 # ---------------------------------------------------------------------------
 
 PHI = "phi3.5-moe-42b-a6.6b"
@@ -1319,6 +1359,45 @@ JAMBA = "jamba-1.5-large-398b"
 JAMBA_LAYERS = 5       # of 72: the published pattern's first five layers
 #                        (Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention),
 #                        48.1 GB in bf16; one 8-layer period is ~91 GB
+
+
+# (arch, depth or None for all layers, kv_pages or None for the default)
+# of the four decoders served on the batched paged path after the other
+# families: bf16 weights 12.5 GB (chatglm3-6b), 66.7 GB (deepseek-coder-33b
+# whole: the default 4096 pages, 16.6 GB of KV at 62 layers, do not fit
+# beside them, 1024 pages hold four 4096-token windows in 4.2 GB), 59.3 GB
+# (qwen1.5-110b at 20 of 80 layers: 2.72 GB a layer and 4.98 GB of
+# embedding and head) and 62.3 GB (grok-1-314b at 6 of 64: 9.84 GB a
+# layer), near phi3.5-moe's 62.9 GB
+FOUR = (("chatglm3-6b", None, None), ("deepseek-coder-33b", None, 1024),
+        ("qwen1.5-110b", 20, None), ("grok-1-314b", 6, None))
+FOUR_REQUESTS = 8
+
+
+def four_serve_phases(torch, launches):
+    """The four decoders of the batched paged path (``FOUR``) at their
+    published widths and head groups, each served, model-checked (and
+    grok-1's ``moe_block`` checked), then freed; their launches go into
+    ``launches`` under the arch's name."""
+    from repro_torch.configs import get_config
+    for arch, depth, kv_pages in FOUR:
+        full = get_config(arch)
+        cut = f"{depth or full.num_layers} of {full.num_layers}"
+        phase(f"{arch} serve ({cut} layers)")
+        cfg = dataclasses.replace(full, num_layers=depth) if depth else full
+        ex, launches[arch] = family_serve_phase(
+            torch, f"{arch} ({cut} layers)", cfg, FOUR_REQUESTS,
+            max_len=4096, dense=False, kv_pages=kv_pages,
+            check=lambda ex, c, a=arch: need(
+                a, c, launched=("paged_attention", "paged_prefill_attention"),
+                idle=("prefill_attention",)))
+        phase(f"{arch} model check")
+        model_check(torch, ex, arch)
+        if cfg.num_experts:
+            moe_block_check(torch, ex)
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def step_times(torch, fn, reps=5):
@@ -1406,16 +1485,65 @@ def slot_step_times(torch, executor, ctx=1000):
         leaf.zero_()
 
 
+class PlanSpy:
+    """Counts the split plans (``kernels/split.py``) the paged decode
+    kernel takes and the tile plans (``kernels/tiles.py``) the paged
+    prefill kernel takes while it is installed: each distinct plan with
+    its inputs and how many calls took it."""
+
+    def __init__(self):
+        from repro_torch.kernels import paged_attention as dec
+        from repro_torch.kernels import tiles
+        self.split, self.tiles = {}, {}
+        self._saved = [(dec, "split_plan", dec.split_plan),
+                       (tiles, "plan", tiles.plan)]
+        for (mod, name, fn), seen in zip(self._saved,
+                                         (self.split, self.tiles)):
+            setattr(mod, name, self._spy(fn, seen))
+
+    @staticmethod
+    def _spy(fn, seen):
+        def spied(*args):
+            out = fn(*args)
+            seen[args, out] = seen.get((args, out), 0) + 1
+            return out
+        return spied
+
+    def close(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def lines(self):
+        return [f"  {what} plans taken, {args}: calls: " + "; ".join(
+                    f"{a} -> {o}: {n}" for (a, o), n in
+                    sorted(seen.items(), key=lambda kv: -kv[1]))
+                for what, args, seen in (
+                    ("decode split", "(B, KV, table keys, page) -> "
+                     "(n_split, chunk)", self.split),
+                    ("prefill tile", "(Sq, G) -> (BQ, n_tiles)",
+                     self.tiles))]
+
+
+# a serve phase's bound on engine iterations: its runs take a few hundred;
+# the reference engine can livelock (ROADMAP §3), and a phase must then
+# fail rather than hang
+SERVE_MAX_ITERS = 10_000
+
+
 def family_serve_phase(torch, label, model_cfg, n_requests, *, max_len,
-                       dense, check):
+                       dense, check, kv_pages=None):
     """Serve ``model_cfg`` through ``build_stack``'s real mode (warm-up,
-    profiler, estimator, classifier), then the engine on MH requests at 2 req/s, seed 0. ``dense``: the
-    dense-slot path, with 4 slots, ``max_num_seqs`` 3 and KV pages only
+    profiler, estimator, classifier), then the engine on MH requests at 2
+    req/s, seed 0, for at most ``SERVE_MAX_ITERS`` iterations. ``dense``:
+    the dense-slot path, with 4 slots, ``max_num_seqs`` 3 and KV pages only
     accounting (sized so that no prompt is rejected), as the gemma3 phase
-    runs it; else the batched paged path at the default KV capacity.
+    runs it; else the batched paged path at the default KV capacity, or
+    at ``kv_pages`` pages with ``max_num_seqs`` the number of
+    ``max_len`` windows they hold (so that the running requests' windows
+    always fit), printing the split and tile plans the paged kernels took.
     ``check(executor, counts)`` fails the phase on the model's own
     conditions (kernels launched, path taken). Returns (executor,
-    launches, summary dict)."""
+    launches)."""
     from repro_torch.core.scheduler import make_policy
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_stack
@@ -1427,7 +1555,8 @@ def family_serve_phase(torch, label, model_cfg, n_requests, *, max_len,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    kw = dict(max_slots=4, kv_pages=4096) if dense else {}
+    kw = dict(max_slots=4, kv_pages=4096) if dense else \
+        dict(kv_pages=kv_pages)
     executor, classifier, engine_cfg, profile, _ = build_stack(
         model_cfg, "real", max_len=max_len, device="cuda", **kw)
     t_build = time.perf_counter() - t0
@@ -1449,12 +1578,22 @@ def family_serve_phase(torch, label, model_cfg, n_requests, *, max_len,
     if dense:
         engine_cfg = dataclasses.replace(
             engine_cfg, max_num_seqs=executor.max_slots - 1)
+    elif kv_pages is not None:
+        engine_cfg = dataclasses.replace(
+            engine_cfg, max_num_seqs=kv_pages * PAGE // max_len)
+    print(f"KV pool {executor.capacity_pages} pages of {PAGE} tokens, "
+          f"max_num_seqs {engine_cfg.max_num_seqs}", flush=True)
     reqs = generate(WorkloadConfig(mix="MH", rate=2.0,
                                    num_requests=n_requests, seed=0))
     engine = Engine(make_policy("tcm"), executor, classifier, engine_cfg)
+    spy = None if dense else PlanSpy()
     t1 = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
+    try:
+        done = engine.run(reqs, max_iters=SERVE_MAX_ITERS)
+        torch.cuda.synchronize()
+    finally:
+        if spy is not None:
+            spy.close()
     t_run = time.perf_counter() - t1
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1477,6 +1616,8 @@ def family_serve_phase(torch, label, model_cfg, n_requests, *, max_len,
     if "jax" in sys.modules:
         fail(f"{label} serve: jax was imported")
     check(executor, counts)
+    if spy is not None:
+        print("\n".join(spy.lines()), flush=True)
     if dense:
         slot_step_times(torch, executor)
     else:
@@ -1518,14 +1659,23 @@ def per_token_rel(out, ref):
 
 
 def moe_block_check(torch, executor, S=512):
-    """Layer 0's expert weights of the served phi3.5-moe (16 experts, d_ff
-    6400, bf16 on the card): ``moe_block`` over a 512-token chunk (G=512,
-    C=80 slots an expert) on the card against the same function in f32 on
-    the CPU on the same values. The routing (f32 router logits on both)
-    must be identical; each token's output within 2e-2 of its rms."""
+    """Layer 0's expert weights of the served MoE model (phi3.5-moe: 16
+    experts, d_ff 6400; grok-1: 8 experts, d_ff 32768; bf16 on the card):
+    ``moe_block`` over a 512-token chunk on the card against the same
+    function in f32 on the CPU on the same values (copied to the host in
+    bf16 and widened there: grok-1's layer is 19.3 GB in f32, which the
+    host must hold). The routing (f32 router logits on both) must be
+    identical; each token's output within 2e-2 of its rms."""
     from repro_torch.models import layers as L
     cfg = executor.cfg
     p = executor.layers[0]["b0"][0]["moe"]
+    f32_bytes = 4 * sum(v.numel() for v in p.values())
+    avail = host_available_bytes()
+    print(f"moe_block check: layer 0's weights {f32_bytes / 1e9:.2f} GB in "
+          f"f32 on the host, which has {avail / 1e9:.2f} GB available",
+          flush=True)
+    if avail < 1.25 * f32_bytes:
+        fail("moe_block check: the host cannot hold the f32 reference")
     gen = torch.Generator(device="cpu").manual_seed(13)
     x = torch.randn((1, S, cfg.d_model), generator=gen).to(torch.bfloat16)
     xc = x.cuda()
@@ -1533,7 +1683,7 @@ def moe_block_check(torch, executor, S=512):
         route = L.moe_route(xc, p["router"], cfg)
         y, aux = L.moe_block(xc, p, cfg)
         torch.cuda.synchronize()
-        p32 = {k: v.float().cpu() for k, v in p.items()}
+        p32 = {k: v.cpu().float() for k, v in p.items()}
         ref_route = L.moe_route(x.float(), p32["router"], cfg)
         ref, ref_aux = L.moe_block(x.float(), p32, cfg)
     drops = int((~route["keep"]).sum())
@@ -1542,7 +1692,8 @@ def moe_block_check(torch, executor, S=512):
                 and torch.equal(route["keep"].cpu(), ref_route["keep"]))
     tok, rel = per_token_rel(y.cpu(), ref)
     times = step_times(torch, lambda: L.moe_block(xc, p, cfg)[0], reps=5)
-    print(f"moe_block check (phi3.5-moe layer 0, {cfg.num_experts} experts "
+    print(f"moe_block check ({cfg.name} layer 0, {cfg.num_experts} experts "
+          f"of d_ff {cfg.d_ff}, "
           f"top-{cfg.experts_per_token}, a {S}-token chunk: G={route['G']}, "
           f"C={route['C']} slots an expert): bf16 on the card vs f32 on the "
           f"CPU: routing identical {same}; {drops} of "
@@ -1557,6 +1708,15 @@ def moe_block_check(torch, executor, S=512):
     if not (tok.max().item() <= 2e-2):
         fail(f"moe_block check: a token's output is {tok.max().item():.3e} "
              "of its rms away from the f32 reference")
+
+
+def host_available_bytes() -> int:
+    """The host's available memory (``MemAvailable``), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("moe_block check: /proc/meminfo has no MemAvailable")
 
 
 def mamba_check(torch, executor, S=512, decodes=8):
@@ -2212,7 +2372,15 @@ def train_xlstm_phase(torch):
 DRYRUN_PAIRS = (("qwen2-vl-2b", "decode_32k"), ("chatglm3-6b", "prefill_32k"),
                 ("phi3.5-moe-42b-a6.6b", "decode_32k"),
                 ("jamba-1.5-large-398b", "decode_32k"),
-                ("xlstm-125m", "prefill_32k"))
+                ("xlstm-125m", "prefill_32k"), ("whisper-base", "train_4k"))
+# the train pairs' collectives, as torch 2.13 records them (a train step's
+# count is not a layer's sum: the gathers of FSDP weights, the products'
+# backward, the LayerNorms' gradients summed whole); the chip machine's
+# torch must give the same (tests/test_torch_dryrun_families.py pins the
+# reduced pair and this record)
+DRYRUN_TRAIN_EXPECTED = {
+    ("whisper-base", "train_4k"): {"all-gather": 258, "all-reduce": 82},
+}
 DRYRUN_KEYS = {"arch", "shape", "mesh", "devices", "mode", "opts", "params",
                "padded_heads", "orig_heads", "padded_kv", "orig_kv",
                "lower_s", "compile_s", "flops", "bytes_accessed", "memory",
@@ -2260,7 +2428,7 @@ def dryrun_expected(cfg) -> dict:
 
 
 def dryrun_phase():
-    """The dry-run of five pairs on the simulated single-pod mesh, in a
+    """The dry-run of six pairs on the simulated single-pod mesh, in a
     subprocess: it needs no card, and its fake process group is
     process-global."""
     from repro_torch.configs import get_config
@@ -2288,11 +2456,12 @@ def dryrun_phase():
               f"{rec['memory']['output_bytes']} bytes, {rec['flops']:.4e} "
               f"FLOPs counted; collectives {json.dumps(rec['collectives'])}"
               f"; roofline {json.dumps(rec['roofline'])}", flush=True)
-        want = dryrun_expected(get_config(rec["arch"]))
+        want = DRYRUN_TRAIN_EXPECTED.get((rec["arch"], rec["shape"])) or \
+            dryrun_expected(get_config(rec["arch"]))
         have = {k: v["count"] for k, v in rec["collectives"].items()}
         if have != want:
-            fail(f"{what}: collectives {have}, expected {want} (counted a "
-                 "layer: dryrun_expected)")
+            fail(f"{what}: collectives {have}, expected {want} "
+                 "(dryrun_expected, DRYRUN_TRAIN_EXPECTED)")
 
 
 def main():
@@ -2348,6 +2517,7 @@ def main():
                  "B=16 mixed, phi3.5-moe H=32 KV=8", shape=phi)
     check_prefill(torch, pre, gen, [0, 1024, 3584, 0], [512, 300, 512, 0],
                   512, flush, shape=phi)
+    four_kernel_rows(torch, dec, pre, gen, flush)
 
     phase("prefill_attention vs plain")
     dense_rows = {label: check_dense(torch, dense, gen, *case, flush, label)
@@ -2464,6 +2634,8 @@ def main():
     del x_executor
     gc.collect()
     torch.cuda.empty_cache()
+
+    four_serve_phases(torch, launches)
 
     # training runs no kernel: no kernel has a backward (kernels/ops.py)
     phase("train check")

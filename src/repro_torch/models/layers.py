@@ -28,7 +28,8 @@ from repro_torch.kernels.ref import causal_mask
 
 from .config import ModelConfig
 from .rope import apply_rope_tables
-from .sharding import current_rules, einsum, replicate, shard_act
+from .sharding import (current_rules, einsum, replicate, shard_act,
+                       whole_grad)
 
 NEG_INF = -1e30
 
@@ -45,10 +46,18 @@ def rms_norm_scaled(x, scale, eps: float = 1e-6):
 
 
 def layer_norm(x, w, b, eps: float = 1e-6):
-    """LayerNorm in f32 (the encoder-decoder's norm)."""
-    return F.layer_norm(x.to(torch.float32), (x.shape[-1],),
-                        weight=w.to(torch.float32), bias=b.to(torch.float32),
-                        eps=eps).to(x.dtype)
+    """LayerNorm in f32 (the encoder-decoder's norm). Under sharding rules
+    it is written out (mean, variance, scale and shift), its output's
+    gradient summed whole first (``whole_grad``): DTensor's own LayerNorm
+    backward redistributes a partial gradient as its version picks (a
+    reduce-scatter on one torch, an all-reduce on another)."""
+    x32, w32, b32 = (t.to(torch.float32) for t in (x, w, b))
+    if current_rules() is None:
+        return F.layer_norm(x32, (x.shape[-1],), weight=w32, bias=b32,
+                            eps=eps).to(x.dtype)
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return whole_grad((xc * torch.rsqrt(var + eps) * w32 + b32).to(x.dtype))
 
 
 def _softcap(logits, cap: float):

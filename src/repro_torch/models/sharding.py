@@ -306,6 +306,26 @@ def whole(t):
         Replicate() if p.is_partial() else p for p in t.placements])
 
 
+class _WholeGrad(torch.autograd.Function):
+    """The identity, with its gradient's partial sums summed (``whole``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole(g)
+
+
+def whole_grad(t):
+    """``t``; on a ``DTensor``, its gradient's partial sums summed (an
+    all-reduce) before they reach the ops that made ``t``, as XLA reduces
+    a product's partial input gradient (DTensor may leave them partial,
+    or reduce-scatter them, as its version picks)."""
+    return _WholeGrad.apply(t) if _is_dtensor(t) else t
+
+
 def total(xs):
     """``sum(xs)`` of scalars that need no gradient. On ``DTensor``s, each
     rank's shares summed (a replicated scalar counts on the first rank of

@@ -34,7 +34,8 @@ SERVE = [("phi3.5-moe-42b-a6.6b", "decode"),
          ("grok-1-314b", "decode"), ("grok-1-314b", "prefill"),
          ("jamba-1.5-large-398b", "decode"),
          ("jamba-1.5-large-398b", "prefill")]
-TRAIN = [("chatglm3-6b", "train"), ("phi3.5-moe-42b-a6.6b", "train")]
+TRAIN = [("chatglm3-6b", "train"), ("phi3.5-moe-42b-a6.6b", "train"),
+         ("whisper-base", "train")]
 SHAPE = {"decode": dict(kind="decode", seq=256, batch=32),
          "prefill": dict(kind="prefill", seq=64, batch=32),
          "train": dict(kind="train", seq=64, batch=32)}
@@ -87,6 +88,8 @@ def run(arch, kind, meta):
 
 
 out = {a + "/" + k: run(a, k, shapes[k]) for a, k in pairs}
+r = D.run_one("whisper-base", "train_4k", "single", "", write=False)
+out["whisper-base/train_4k"] = {"collectives": r["collectives"]}
 for kind in ("prefill", "train"):
     meta = dict(kind=kind, seq=S, batch=32)
     for scan in ("loop", "once"):
@@ -179,7 +182,14 @@ def test_serve_pairs_match_the_reference(pair, reference, port):
 # reference's 29 adds each layer's router logits (forward and recompute:
 # XLA keeps the FSDP-sharded router and reduces its product, where the
 # port gathers it with the layer's other weights) and aux loss.
-TRAIN_AR = {"chatglm3-6b": 20, "phi3.5-moe-42b-a6.6b": 25}
+# whisper-base (two encoder and two decoder layers): forward 10 (self-
+# attention, cross-attention and MLP outputs), 4 in the products'
+# backward, 12 LayerNorm output gradients summed whole (2 an encoder
+# layer, 3 a decoder layer, the two final norms: ``sharding.whole_grad``),
+# then the embedding lookup, the loss's 3, the token count, the gradients
+# in 1, the norm and the loss metric: 34; the reference's 42.
+TRAIN_AR = {"chatglm3-6b": 20, "phi3.5-moe-42b-a6.6b": 25,
+            "whisper-base": 34}
 
 
 @pytest.mark.parametrize("pair", TRAIN, ids="/".join)
@@ -216,17 +226,37 @@ def test_xlstm_step_counted_once_equals_the_loop(kind, port):
                                  "reduce-scatter": 5, "all-gather": 1}
 
 
-def test_chip_smoke_counts_the_reduced_records(port):
-    """chip_smoke.py's dry-run phase holds full-size pairs to collectives
-    counted a layer (``dryrun_expected``); the same arithmetic gives the
-    reduced records here."""
+def test_whisper_train_record_is_the_same_on_every_torch(port):
+    """whisper-base's train step leaves no redistribution to DTensor's
+    LayerNorm backward, which torch 2.11 and 2.13 resolve differently
+    (an all-reduce against a reduce-scatter and an all-gather): every
+    LayerNorm's output gradient is summed whole first. The reduced pair
+    issues all-gathers and all-reduces only, the counts torch 2.11 gave
+    before that repair; the full-size train_4k record is the one
+    chip_smoke.py's dry-run phase holds the chip machine's torch to."""
+    assert _counts(port["whisper-base/train"]) == {"all-gather": 90,
+                                                   "all-reduce": 34}
+    smoke = _chip_smoke()
+    assert _counts(port["whisper-base/train_4k"]) == \
+        smoke.DRYRUN_TRAIN_EXPECTED["whisper-base", "train_4k"]
+
+
+def _chip_smoke():
     import importlib.util
-    from repro_torch.configs import get_reduced
-    from repro_torch.models.config import pad_for_tp
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_counts_the_reduced_records(port):
+    """chip_smoke.py's dry-run phase holds full-size pairs to collectives
+    counted a layer (``dryrun_expected``); the same arithmetic gives the
+    reduced records here."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.config import pad_for_tp
+    smoke = _chip_smoke()
     for key in ["/".join(p) for p in SERVE] + ["xlstm-125m/prefill/once"]:
         cfg = pad_for_tp(get_reduced(key.split("/")[0]), 16)
         assert _counts(port[key]) == smoke.dryrun_expected(cfg), key

@@ -3,8 +3,9 @@ version, on the GPU: odd shapes the serving path does not reach (MQA,
 G = 16, hd 256, hd % 8 != 0, softcap, tiny pages, length-0 rows and padding
 queries), the decode kernels' split over keys (rows ending on a slice
 boundary, all-empty rows), and the kernels at the serving widths
-(qwen2-vl's and phi3.5-moe's paged shapes, gemma3's, whisper-base's and
-jamba's dense ones), the page-chain migration payload of a bf16 store
+(qwen2-vl's and phi3.5-moe's paged shapes and the published head
+groups of chatglm3-6b, deepseek-coder-33b, qwen1.5-110b and grok-1-314b,
+gemma3's, whisper-base's and jamba's dense ones), the page-chain migration payload of a bf16 store
 on the card, and each op's refusal of autograd. Marked
 ``gpu``; without a CUDA device every test skips. Run on the card with
 
@@ -63,6 +64,13 @@ GPU_DECODE = [  # (lens, H, KV, hd, page, P, softcap)
     ([129, 250], 16, 1, 256, 16, 64, 0.0),    # G = 16, hd = 256
     # phi3.5-moe's decode shapes: GQA group 4
     ([0, 1, 17, 300, 2048], 32, 8, 128, 16, 256, 0.0),
+    # the published head groups of chatglm3-6b (G=16 at KV=2),
+    # deepseek-coder-33b (G=7), qwen1.5-110b (G=8) and grok-1-314b (G=6,
+    # softcap 30), hd 128, contexts to 4096
+    ([0, 1, 17, 300, 2048, 4096], 32, 2, 128, 16, 512, 0.0),
+    ([0, 5, 129, 1000, 4095], 56, 8, 128, 16, 512, 0.0),
+    ([3, 64, 777, 2048], 64, 8, 128, 16, 256, 0.0),
+    ([1, 250, 1500, 4096], 48, 8, 128, 16, 512, 30.0),
 ]
 GPU_PREFILL = [  # (q_start, new_lens, Sq, H, KV, hd, page, P, softcap)
     ([0, 100, 7, 0], [200, 64, 130, 0], 256, 12, 2, 128, 16, 128, 0.0),
@@ -76,6 +84,14 @@ GPU_PREFILL = [  # (q_start, new_lens, Sq, H, KV, hd, page, P, softcap)
     ([40, 3], [100, 61], 100, 16, 1, 64, 16, 32, 0.0),  # G = 16, mid-page
     # phi3.5-moe's serving widths: GQA group 4, a 512-token chunk
     ([0, 700, 0], [512, 200, 0], 512, 32, 8, 128, 16, 512, 0.0),
+    # the four decoders' published head groups at hd 128: G=16 at KV=2
+    # (BQ=8); G=7 (BQ=18, 126 of 128 rows), chunks ending mid-tile; G=8;
+    # G=6 with softcap 30
+    ([0, 700, 0], [512, 200, 0], 512, 32, 2, 128, 16, 512, 0.0),
+    ([0, 1000, 37], [512, 300, 95], 512, 56, 8, 128, 16, 512, 0.0),
+    ([3], [25], 25, 56, 8, 128, 16, 16, 0.0),
+    ([0, 1024], [512, 512], 512, 64, 8, 128, 16, 512, 0.0),
+    ([0, 300, 0], [512, 212, 0], 512, 48, 8, 128, 16, 512, 30.0),
 ]
 
 
