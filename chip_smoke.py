@@ -50,32 +50,45 @@ Phases, each printing its own lines:
      the same rid claims it and prefills the same 32-token residual);
   8. fleet serve: a Fleet of three replicas, least-loaded routing, 16 MH
      requests at 4 req/s with duplicates and shared prefixes; replica 0
-     drains from request 6's arrival at the first tick it holds a
-     prefilled page, replica 2 is killed at request 10's arrival and
-     restarts 1 s later warmed from a peer; the conservation audit of
+     drains from request 6's arrival at the first tick its move would
+     land fresh pages on whichever live peer it picks, replica 2 is
+     killed at request 10's arrival and restarts 1 s later warmed from
+     a peer; the conservation audit of
      benchmarks/fleet_tolerance.py must read zero, every request must
      finish, the drain must migrate payload pages and the warm import ship
      payload;
-  9. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
+  9. legacy parity: full-width chatglm3-6b (28 layers, bf16) through
+     build_stack with a 24-page pool, q/k/v at fan-in D, on the mix of
+     benchmarks/prefix_cache.py's measure_real_parity (10 ML requests,
+     seed 7, duplicates and shared prefixes, one forced preemption) three
+     ways: the batched executor with the prefix cache on and off and the
+     real-legacy dense-slot oracle, on the "gather" route (mha, no kernel)
+     and the "kernel" route (both paged kernels; prefill_attention on the
+     dense side). Every run must finish every request with tokens, keep
+     the allocator's invariants and preempt (the cache-on run must hit
+     the prefix cache); on "gather" every stream must agree but at a
+     printed rounding tie (TIE_ULPS); the kernel route's partings are
+     printed;
+ 10. gemma3 serve: full-width gemma3-27b (62 layers, bf16, max_len 2048,
      4 dense slots, policy tcm), which build_stack's "real" mode puts on
      the dense-slot path (sliding window), on 8 MH requests; every request
      must finish with tokens, prefill_attention must have launched and
      neither paged kernel, JAX must not be loaded; peak device memory;
- 10. gemma3 model check: the served weights cut to their first 6 layers
+ 11. gemma3 model check: the served weights cut to their first 6 layers
      (5 local, 1 global), a 1536-token prompt and one decode step through
      the dense cache, attention through the kernel against its plain
      version;
- 11. phi3.5-moe serve: full width (d_model 4096, 16 experts top-2, GQA
+ 12. phi3.5-moe serve: full width (d_model 4096, 16 experts top-2, GQA
      32/8) at 24 of its 32 layers (the bf16 weights of all 32 fill the
      card), random weights, through launch.serve.build_stack on the
      batched paged path (max_len 4096), 12 MH requests at 2 req/s; both
      paged kernels must have launched;
- 12. phi3.5-moe model check: a 2-layer cut of the served weights, each
+ 13. phi3.5-moe model check: a 2-layer cut of the served weights, each
      attention call of its paged forward against the kernel's plain
      version, as in 6; then layer 0's moe_block over a 512-token chunk in bf16 on
      the card against f32 on the CPU (routing identical, each token within
      2e-2 of its rms), with the tokens dropped by capacity;
- 13. jamba serve: full width (d_model 8192, GQA 64/8, 16 experts top-2,
+ 14. jamba serve: full width (d_model 8192, GQA 64/8, 16 experts top-2,
      d_ff 24576, Mamba DI 16384) at 5 of its 72 layers (the published
      pattern's first five: Mamba, Mamba+MoE, Mamba, Mamba+MoE, attention;
      one whole 8-layer period does not fit the card), random weights,
@@ -84,10 +97,10 @@ Phases, each printing its own lines:
      512-token prefill and 8 decode steps, in f32 on the card against f32
      on the CPU (within 1e-4), and in bf16 on the card no further from
      that reference than bf16 on the CPU is;
- 14. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
+ 15. whisper-base (6+6 layers, d 512, hd 64) and xlstm-125m (12 layers), full
      width and depth, on the dense-slot path (8 and 6 MH requests);
      whisper must launch prefill_attention, xlstm no kernel;
- 15. the four attention and MoE decoders not served above, each at its
+ 16. the four attention and MoE decoders not served above, each at its
      published width and head groups on the batched paged path
      (max_len 4096, 8 MH requests at 2 req/s): chatglm3-6b whole (28
      layers), deepseek-coder-33b whole (62 layers, 66.7 GB, with 1024 KV
@@ -95,25 +108,25 @@ Phases, each printing its own lines:
      20 of 80 layers and grok-1-314b at 6 of 64 (8 experts top-2, d_ff
      32768, softcap 30); each must finish every request with tokens,
      launch both paged kernels and not prefill_attention, and pass the
-     model check of 6; grok-1 also the moe_block check of 12. Each prints
+     model check of 6; grok-1 also the moe_block check of 13. Each prints
      the split and tile plans its kernels took;
- 16. train check: full-width qwen2-vl-2b cut to 2 layers (f32 masters
+ 17. train check: full-width qwen2-vl-2b cut to 2 layers (f32 masters
      from a seed, q/k/v at fan-in D), one train_step on the card and on
      the CPU (B=1, S=256 with a 128-unit stub image at M-RoPE positions),
      in f32 (loss, grad norm, every gradient leaf within 1e-3 of its max,
      parameters within 2 lr) and in bf16 (the card no further from the
      CPU's f32 than the CPU's bf16 is); prefill_attention on a query that
      requires grad must raise;
- 17. train qwen2-vl-2b: full width and depth (1.777 B parameters, f32
+ 18. train qwen2-vl-2b: full width and depth (1.777 B parameters, f32
      masters and moments, bf16 compute), 5 train steps at B=2, S=1024
      with a 512-unit stub image, then two with remat; each step's loss,
      grad norm, lr, seconds, tokens/s and peak device memory;
- 18. train xlstm-125m: the training launcher with its default arch at
+ 19. train xlstm-125m: the training launcher with its default arch at
      full size, 20 steps at B=4, S=64 with a checkpoint, which must load
      bit for bit into a state made from another seed and give the same
      loss on a fixed batch, bit for bit. No training phase may launch a
      kernel: no kernel has a backward;
- 19. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
+ 20. dry-run: repro_torch.launch.dryrun in a subprocess (the fake process
      group it simulates the 256-device mesh on is process-global) for
      qwen2-vl-2b x decode_32k, chatglm3-6b x prefill_32k,
      phi3.5-moe-42b-a6.6b x decode_32k, jamba-1.5-large-398b x decode_32k,
@@ -125,11 +138,11 @@ Phases, each printing its own lines:
      tests/test_torch_dryrun*.py pin the same arithmetic on reduced
      configs), the train pair's the record torch 2.13 gives
      (``DRYRUN_TRAIN_EXPECTED``), and JAX must not be loaded;
- 20. launches per model, a JSON line of every kernel's numbers (launches
-     summed over every serve and fleet phase), then the device JSON line
-     last.
+ 21. launches per model, a JSON line of every kernel's numbers (launches
+     summed over every serve, fleet and parity phase), then the device
+     JSON line last.
 
-Each serve phase of 11-15 prints TTFT per class, tokens/s, peak device
+Each serve phase of 12-16 prints TTFT per class, tokens/s, peak device
 memory, its launches, and the host enqueue, enqueue-plus-device and
 device (profiler) time of a decode step (and, on the paged path, of a
 512-token prefill step).
@@ -1037,11 +1050,15 @@ def fleet_audit(fleet, reqs) -> dict:
 def drain_when_prefilled(Fleet):
     """``Fleet`` whose drain of replica ``drain_replica`` is set during the
     run: from the arrival of request ``drain_from`` on, at the first
-    co-sim tick that finds the replica prefilling a request with a full
-    page of shareable content, the drain is scheduled at the arrival of
-    the latest request by then (so it starts in that tick). Real-mode
-    clocks are measured, so which tick that is varies between runs; the
-    drain then always migrates a prefilled page chain."""
+    co-sim tick that finds the replica prefilling a request whose move
+    would ship fresh pages (``_would_migrate``), the drain is scheduled
+    at the arrival of the latest request by then (so it starts in that
+    tick). Real-mode clocks are measured, so which tick that is varies
+    between runs; the drain then always migrates a prefilled page chain."""
+    from types import SimpleNamespace
+
+    from repro_torch.serving.migration import build_manifest, \
+        simulate_transfer
 
     @dataclasses.dataclass
     class DrainWhenPrefilled(Fleet):
@@ -1050,18 +1067,46 @@ def drain_when_prefilled(Fleet):
         arrivals: tuple = ()
         drain_request: int | None = None
 
+        def _would_migrate(self, req, start) -> bool:
+            """Whether moving ``req`` off the drained replica at ``start``
+            lands a fresh page whichever eligible peer the drain picks:
+            each lacks one of its prefilled chain pages and lives until
+            the transfer ends (the fault plan's kill time aborts a
+            migration to that replica, even once it has restarted)."""
+            i = self.drain_replica
+            pool = [j for j in self._eligible() if j != i]
+            # the chain as the migration snapshots it, without payloads
+            manifest = build_manifest(SimpleNamespace(
+                allocator=self.engines[i].allocator, executor=None), req)
+            chain = len(manifest) * self.engines[i].config.page_size
+            limit = max(req.prompt_tokens - 1, 0)
+            kill = self.faults.kill_time if self.faults else lambda _r: None
+            return bool(pool) and all(
+                self.engines[j].allocator.match_prefix(
+                    req.content_chunks(), limit).tokens < chain and
+                simulate_transfer(manifest, req.rid, start,
+                                  self.fleet.migration, None, kill(i),
+                                  kill(j)).status == "migrated"
+                for j in pool)
+
         def _fleet_tick(self, pending, remaining):
+            # restarts first, as the fleet's tick takes them (a second
+            # call in the same tick changes nothing), so the test sees
+            # the peers the drain will move requests to
+            if self._restarts_armed():
+                self._tick_restarts(pending, remaining,
+                                    self._live_clock(remaining))
             i = self.drain_replica
             clk = self._live_clock(remaining)
-            if self.drain_request is None and self.alive[i] and \
+            if self.drain_request is None and i in self._eligible() and \
                     clk is not None and \
-                    clk >= self.arrivals[self.drain_from] and any(
-                        r.prefilled >= self.engines[i].config.page_size and
-                        "!" not in r.content_chunks()[0][0]
-                        for r in self.engines[i].prefilling):
+                    clk >= self.arrivals[self.drain_from]:
                 k = max(j for j, t in enumerate(self.arrivals) if t <= clk)
-                self.drain_request = k
-                self.fleet.drains[i] = self.arrivals[k]
+                start = max(self.engines[i].now, self.arrivals[k])
+                if any(self._would_migrate(r, start)
+                       for r in self.engines[i].prefilling):
+                    self.drain_request = k
+                    self.fleet.drains[i] = self.arrivals[k]
             return super()._fleet_tick(pending, remaining)
     return DrainWhenPrefilled
 
@@ -1072,7 +1117,8 @@ def fleet_serve_phase(torch, executor, classifier, engine_cfg,
     routing, policy tcm, on 16 MH requests at 4 req/s (seed 0) with
     duplicates and shared prefixes (as benchmarks/fleet_tolerance.py
     shapes its traffic): replica 0 drains from the arrival of request 6
-    (at the first tick it holds a prefilled page: ``drain_when_prefilled``),
+    (at the first tick its move would land fresh pages on a peer that
+    outlives the transfer: ``drain_when_prefilled``),
     replica 2 is killed at the arrival of request 10 and restarts 1 s
     after, warmed from a peer's prefix trie over the page-chain protocol.
 
@@ -1155,6 +1201,293 @@ def fleet_serve_phase(torch, executor, classifier, engine_cfg,
     if "jax" in sys.modules:
         fail("fleet serve: jax was imported")
     return counts
+
+
+PARITY_ARCH = "chatglm3-6b"
+PARITY_REQUESTS = 10
+PARITY_KV_PAGES = 24
+# A parting of two runs' greedy streams is a rounding tie when, at its
+# first parted step, each run's pick beats the other run's pick by at most
+# TIE_ULPS bf16 spacings (the spacing at the pick's logit). The logits are
+# bf16, each the rounding of an f32 sum (within half a spacing), and two
+# runs' sums differ by the rounding of reductions taken in another order
+# upstream (other batch and call shapes pick other GEMM tilings on the
+# card); the phase prints that drift, the largest difference of one logit
+# between the runs, at the steps where they agree. Run A picks a over b
+# and run B b over a only if gap_A + gap_B = (l_A[a] - l_B[a]) +
+# (l_B[b] - l_A[b]) <= 2 D, D the largest difference of one logit; D of
+# at most 2 spacings (one of rounding, one of drift) bounds each gap by 4.
+TIE_ULPS = 4
+
+
+def parity_mix():
+    """The duplicate- and shared-prefix-heavy mini mix of
+    benchmarks/prefix_cache.py's ``measure_real_parity``."""
+    from repro_torch.serving.workload import WorkloadConfig
+    return WorkloadConfig(mix="ML", rate=50.0, num_requests=PARITY_REQUESTS,
+                          seed=7, out_tokens_log_mu=1.8,
+                          out_tokens_log_sigma=0.3, text_tokens_log_mu=3.2,
+                          text_tokens_log_sigma=0.5, video_frames_min=1,
+                          video_frames_max=2, image_patches=32,
+                          video_patches_per_frame=16, duplicate_prob=0.6,
+                          shared_prefix_prob=0.6,
+                          shared_prefix_tokens_min=20,
+                          shared_prefix_tokens_max=40)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers (8 significant bits) at ``|x|``."""
+    return math.ldexp(1.0, math.frexp(max(abs(x), 2.0 ** -126))[1] - 8)
+
+
+class EmittedLogits:
+    """Keeps, for each (rid, token index) ``executor`` emits, the logits
+    row (bf16, on the device) of the forward that drew the token. A
+    forward's rows are named as the executor lays them out: the batched
+    path's prefill calls carry their rids, its decode step runs the rows
+    ``_decode_rows`` returned, and the dense-slot path acquires a
+    request's slot right before its forward. A later forward for the same
+    index (a re-prefill after a preemption) replaces the row."""
+
+    def __init__(self, executor):
+        self.rows = {}
+        self.rids = self.decode = []
+        ex, T, keep = executor, executor.T, self
+
+        class Keeping:
+            def __getattr__(self, name):
+                return getattr(T, name)
+
+            @staticmethod
+            def forward(*args, **kw):
+                out = T.forward(*args, **kw)
+                last = out[0][:, -1]
+                for j, rid in enumerate(keep.rids):
+                    at = len(ex.emitted.get(rid, ()))
+                    keep.rows[(rid, at)] = last[j].clone()
+                return out
+        ex.T = Keeping()
+        if ex.legacy:
+            acquire = ex.acquire_slot
+
+            def acquiring(req):
+                self.rids = [req.rid]
+                return acquire(req)
+            ex.acquire_slot = acquiring
+            return
+        decode_rows, prefill_call = ex._decode_rows, ex._paged_prefill_call
+
+        def deciding(reqs):
+            rows = decode_rows(reqs)
+            self.rids = self.decode = [r.rid for r in rows]
+            return rows
+
+        def prefilling(rows):
+            self.rids = [r[0] for r in rows]
+            try:
+                return prefill_call(rows)
+            finally:
+                self.rids = self.decode
+        ex._decode_rows, ex._paged_prefill_call = deciding, prefilling
+
+
+def parity_run(torch, executor, classifier, engine_cfg, cache: bool):
+    """The mix through ``Engine.step`` on ``executor``, the prefix cache
+    on or off, with one recompute-style preemption forced on the first
+    running request (as ``measure_real_parity`` does), for at most
+    ``SERVE_MAX_ITERS`` steps. Gates: every request finished, the
+    allocator's invariants, a token stream for each request, a preemption,
+    and with the cache on a prefix hit. Returns the run's streams, logits
+    records, prefix stats, launches and seconds."""
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.workload import generate
+
+    label = (f"legacy parity, {executor.attn_impl}, "
+             + ("real-legacy" if executor.legacy else
+                f"cache {'on' if cache else 'off'}"))
+    keep = EmittedLogits(executor)
+    eng = Engine(make_policy("tcm"), executor, classifier,
+                 dataclasses.replace(engine_cfg, prefix_cache=cache))
+    ops.reset_launch_counts()
+    pending = generate(parity_mix())
+    forced = False
+    t0 = time.perf_counter()
+    for _ in range(SERVE_MAX_ITERS):
+        pending = eng.step(pending)
+        if not forced and eng.running:
+            eng._preempt(next(iter(eng.running)))   # mid-decode evict
+            forced = True
+        if len(eng.finished) + len(eng.rejected) == PARITY_REQUESTS:
+            break
+    else:
+        fail(f"{label}: stopped at SERVE_MAX_ITERS = {SERVE_MAX_ITERS} "
+             f"engine steps with {len(eng.finished)} of {PARITY_REQUESTS} "
+             "finished")
+    synchronize(executor.device)
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    stats = eng.allocator.prefix_stats()
+    emitted = {r.rid: list(executor.emitted.get(r.rid) or ())
+               for r in eng.finished}
+    preempts = sum(r.preemptions for r in eng.finished)
+    print(f"{label}: {len(eng.finished)}/{PARITY_REQUESTS} finished, "
+          f"{eng.iterations} iterations, {preempts} preemptions, prefix "
+          f"hits {stats['hits']}, COW copies {stats['cow_copies']}, "
+          f"evictions {stats['evictions']}, {secs:.2f}s; launches "
+          f"{counts}", flush=True)
+    if len(eng.finished) != PARITY_REQUESTS:
+        fail(f"{label}: {len(eng.finished)} of {PARITY_REQUESTS} finished "
+             f"({len(eng.rejected)} rejected)")
+    eng.allocator.check_invariants()
+    empty = [rid for rid, toks in emitted.items() if not toks]
+    if empty:
+        fail(f"{label}: requests with no tokens: {empty}")
+    if preempts < 1:
+        fail(f"{label}: no preemption")
+    if cache and not executor.legacy and stats["hits"] < 1:
+        fail(f"{label}: no prefix hit")
+    return dict(emitted=emitted, logits=keep.rows, hits=stats["hits"],
+                cow=stats["cow_copies"], counts=counts, secs=secs)
+
+
+def parity_compare(runs):
+    """Compare the runs' streams ("on", "off", "legacy"): for each request
+    whose streams part, each pair of runs that parts, at its first parted
+    step, where a parting is a tie only as ``TIE_ULPS`` says; and each
+    pair's largest logit drift at the steps where it agrees. Returns
+    (parted streams, tied streams, lines to print)."""
+    lines, parted, tied = [], 0, 0
+    drift = {}
+    for rid in sorted(runs["legacy"]["emitted"]):
+        streams = {key: run["emitted"].get(rid)
+                   for key, run in runs.items()}
+        all_tie = True
+        for a, b in (("on", "legacy"), ("off", "legacy"), ("on", "off")):
+            sa, sb = streams[a], streams[b]
+            at = next((i for i, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                      min(len(sa), len(sb)))
+            for i in range(at):
+                la = runs[a]["logits"].get((rid, i))
+                lb = runs[b]["logits"].get((rid, i))
+                if la is not None and lb is not None:
+                    d = float((la.float() - lb.float()).abs().max())
+                    ulps = d / bf16_ulp(float(la.float().max()))
+                    drift[(a, b)] = max(drift.get((a, b), (0.0, 0.0)),
+                                        (ulps, d))
+            if sa == sb:
+                continue
+            la = runs[a]["logits"].get((rid, at))
+            lb = runs[b]["logits"].get((rid, at))
+            if at >= min(len(sa), len(sb)) or la is None or lb is None:
+                all_tie = False
+                lines.append(f"parting, not a tie: {rid} {a} vs {b} at "
+                             f"token {at} (lengths {len(sa)}, {len(sb)}; "
+                             f"logits kept {la is not None}, "
+                             f"{lb is not None})")
+                continue
+            ta, tb = sa[at], sb[at]
+            la, lb = la.float(), lb.float()
+            gaps = [(float(la[ta] - la[tb]), bf16_ulp(float(la[ta]))),
+                    (float(lb[tb] - lb[ta]), bf16_ulp(float(lb[tb])))]
+            top2 = [float(x[0] - x[1]) for x in (la.topk(2).values,
+                                                 lb.topk(2).values)]
+            tie = all(g <= TIE_ULPS * u for g, u in gaps)
+            all_tie = all_tie and tie
+            lines.append(
+                f"{'tie' if tie else 'parting, not a tie'}: {rid} {a} vs "
+                f"{b} at token {at}: {ta} vs {tb}, logits {a} "
+                f"{float(la[ta])} / {float(la[tb])}, {b} {float(lb[ta])} / "
+                f"{float(lb[tb])}; each pick's lead "
+                + ", ".join(f"{g:.6g} ({g / u:.2f} spacings)"
+                            for g, u in gaps)
+                + f" (bound {TIE_ULPS}); top-two gaps {top2[0]:.6g}, "
+                f"{top2[1]:.6g}")
+        if any(streams[k] != streams["legacy"] for k in streams):
+            parted += 1
+            tied += all_tie
+    lines += [f"largest logit drift at agreeing steps, {a} vs {b}: "
+              f"{u:.2f} spacings ({d:.6g})"
+              for (a, b), (u, d) in sorted(drift.items())]
+    return parted, tied, lines
+
+
+def legacy_parity_phase(torch):
+    """Full-width chatglm3-6b (28 layers, bf16) through ``build_stack``
+    with a 24-page pool, its q/k/v then scaled to fan-in D
+    (``fused_qkv_fan_in_d``: at the declared fan-in every softmax row is
+    one-hot, and two right bf16 evaluations part wherever a rounding picks
+    another key), then ``measure_real_parity``'s scenario three ways (the
+    batched executor with the prefix cache on and off, and the
+    ``real-legacy`` dense-slot oracle; replicas sharing the built weights)
+    on both attention routes. "gather": the gather path and ``mha`` on
+    both sides, no kernel; its streams must agree up to printed rounding
+    ties (``TIE_ULPS``). "kernel": both paged kernels on the batched side,
+    ``prefill_attention`` on the dense side; its partings are printed,
+    not gated, since the reference promises no parity across attention
+    numerics. Returns the phase's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_stack
+    from repro_torch.serving.executors import ModelExecutor
+
+    t0 = time.perf_counter()
+    base, classifier, engine_cfg, profile, _ = build_stack(
+        PARITY_ARCH, "real", full=True, kv_pages=PARITY_KV_PAGES,
+        device="cuda")
+    cfg = base.cfg
+    if cfg != get_config(PARITY_ARCH):
+        fail("legacy parity: not the full-width chatglm3-6b")
+    fused_qkv_fan_in_d(base.layers, cfg)
+    print(f"model {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, H={cfg.num_heads}, KV={cfg.num_kv_heads}, "
+          f"dtype {cfg.dtype}; KV pool {base.capacity_pages} pages, "
+          f"max_len {base.max_len}, {base.max_slots} slots; stack built "
+          f"({len(profile.records)} profiled requests) in "
+          f"{time.perf_counter() - t0:.2f}s; q/k/v scaled to fan-in D",
+          flush=True)
+    total = {}
+    summary = []
+    for route in ("gather", "kernel"):
+        t1 = time.perf_counter()
+        runs = {}
+        for key, legacy, cache in (("on", False, True),
+                                   ("off", False, False),
+                                   ("legacy", True, True)):
+            ex = ModelExecutor(
+                cfg, dataclasses.replace(base.config, legacy=legacy,
+                                         attn_impl=route),
+                device=base.device, params=base.params, layers=base.layers)
+            runs[key] = run = parity_run(torch, ex, classifier, engine_cfg,
+                                         cache)
+            c = run["counts"]
+            label = f"legacy parity, {route}, {key}"
+            if route == "gather":
+                need(label, c, idle=tuple(c))
+            elif legacy:
+                need(label, c, launched=("prefill_attention",),
+                     idle=("paged_attention", "paged_prefill_attention"))
+            else:
+                need(label, c, launched=("paged_attention",
+                                         "paged_prefill_attention"),
+                     idle=("prefill_attention",))
+            for name, n in c.items():
+                total[name] = total.get(name, 0) + n
+        parted, tied, lines = parity_compare(runs)
+        print("\n".join(f"legacy parity, {route}: {line}"
+                        for line in lines), flush=True)
+        summary.append(
+            f"{route}: parted streams {parted} of {PARITY_REQUESTS}, ties "
+            f"{tied}, prefix hits {runs['on']['hits']}, COW copies "
+            f"{runs['on']['cow']}, {time.perf_counter() - t1:.2f}s")
+        if route == "gather" and parted != tied:
+            fail(f"legacy parity, gather: {parted - tied} streams part "
+                 "other than at a rounding tie")
+    print(f"legacy parity: {'; '.join(summary)}", flush=True)
+    if "jax" in sys.modules:
+        fail("legacy parity: jax was imported")
+    return total
 
 
 def gemma_serve_phase(torch, n_requests: int):
@@ -2064,6 +2397,18 @@ def qkv_fan_in_d(params, cfg):
                 w.mul_(math.sqrt(w.shape[-2] / cfg.d_model))
 
 
+def fused_qkv_fan_in_d(layers, cfg):
+    """``qkv_fan_in_d`` on an executor's fused layers (its stacked q/k/v
+    are released): each ``wqkv`` holds the q, k and v columns side by
+    side (``layers.fuse_attn``)."""
+    H, KV, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    for stage in layers:
+        for blk in stage.values():
+            for lp in blk:
+                lp["wqkv"][:, :H * hd].mul_(math.sqrt(H / D))
+                lp["wqkv"][:, H * hd:].mul_(math.sqrt(KV / D))
+
+
 def grad_norm(torch, params, cfg, batch):
     """(loss, global gradient norm) of ``loss_fn`` at ``params``, without
     an update."""
@@ -2569,6 +2914,11 @@ def main():
         torch, executor, classifier, engine_cfg)
     # free qwen2-vl and its replicas before gemma3-27b's 57 GB
     del executor, classifier
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("legacy parity")
+    launches[f"{PARITY_ARCH} legacy parity"] = legacy_parity_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -322,13 +322,21 @@ class ModelExecutor:
     EMITTED_RETAIN = 4096
 
     def __init__(self, cfg, config: ExecutorConfig | None = None, *,
-                 device="cuda", params=None, layers=None):
+                 device="cuda", params=None, layers=None, **kwargs):
         import torch
 
         from repro_torch.cache import BlockAllocator
         from repro_torch.device import resolve_device
         from repro_torch.models import transformer as T
         from repro_torch.models.params import init_params, tree_map
+        if kwargs:
+            # bare-kwargs construction is gone: fail loudly with the
+            # migration path, as the reference's constructor does
+            raise TypeError(
+                "ModelExecutor no longer accepts bare keyword arguments "
+                f"({sorted(kwargs)}); construct an ExecutorConfig — "
+                "ModelExecutor(cfg, ExecutorConfig("
+                + ", ".join(f"{k}=..." for k in sorted(kwargs)) + "))")
         if config is None:
             config = ExecutorConfig()
         config = config.resolved()
@@ -746,12 +754,20 @@ class ModelExecutor:
     # -- legacy sequential path (token-parity oracle) ------------------------
     def _legacy_forward(self, tokens, positions, cache, q_start):
         """One request's forward over its slot cache (written in place):
-        (last position's logits (1, 1, V), cache with ``idx`` advanced)."""
+        (last position's logits (1, 1, V), cache with ``idx`` advanced).
+
+        It follows the executor's attention route, as the batched path
+        does: "gather" attends through ``mha`` (the reference's dense-cache
+        numerics, and the gather path's, so the two paths emit the same
+        tokens), "kernel" through the dense kernel. It serves every
+        dense-slot forward: the ``real-legacy`` oracle, the archs outside
+        the paged protocol, and the legacy ``isolated_run``."""
         with self.torch.no_grad():
             logits, cache, _ = self.T.forward(
                 self.params, self.cfg, tokens, positions=positions,
                 cache=cache, q_start=q_start, last_only=True,
-                layers=self.layers)
+                causal_impl="mha" if self.attn_impl == "gather"
+                else "kernel", layers=self.layers)
         return logits, cache
 
     def _legacy_iteration(self, prefill_rows, decode_rows):

@@ -253,15 +253,17 @@ def test_prefix_claim_copies_the_boundary_page_in_place():
     assert torch.equal(store.k_pages[7], store.k_pages[3])
 
 
-def test_port_engine_real_and_real_legacy_emit_the_same_tokens():
+@pytest.mark.parametrize("impl", ["auto", "kernel"])
+def test_port_engine_real_and_real_legacy_emit_the_same_tokens(impl):
     """The port's own token-parity oracle, as the JAX package's
     tests/test_batched_executor.py holds its own: the same multimodal
     workload through the engine with the batched (``real``) and the
     sequential dense-slot (``real-legacy``) executor, one recompute-style
-    preemption injected in each, emits the same tokens. The batched run
-    takes the path the card runs, attention through the kernels (their
-    plain versions here), which keep the logits in f32 as the dense
-    kernel does; the gather path's bf16 logits round otherwise."""
+    preemption injected in each, emits the same tokens. Both executors
+    take one attention route, so both paths share its numerics: the
+    default ("auto", the gather path and ``mha`` on the CPU, as the
+    reference's executors take it) and the kernels (their plain versions
+    here, the route the card runs)."""
     from repro_torch.core.scheduler import make_policy
     from repro_torch.launch.serve import build_stack
     from repro_torch.serving.engine import Engine
@@ -276,7 +278,9 @@ def test_port_engine_real_and_real_legacy_emit_the_same_tokens():
         executor, classifier, engine_cfg, _, _ = build_stack(
             "chatglm3-6b", kind, kv_pages=24, device="cpu")
         assert executor.legacy == (kind == "real-legacy")
-        executor.attn_impl = "kernel"
+        assert executor.attn_impl == "gather"
+        if impl != "auto":
+            executor.attn_impl = impl
         eng = Engine(make_policy("tcm"), executor, classifier, engine_cfg)
         pending = generate(wl)
         forced = False

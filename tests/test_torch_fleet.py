@@ -20,6 +20,7 @@ seconds instead of running to the time limit.
 """
 import dataclasses
 import importlib
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -316,3 +317,71 @@ def test_fleet_restart_reuses_an_executor_without_fresh():
     assert router.executors[i] is not old.executor
     assert np.isclose(router.restart_events[0]["died"] + 1.0,
                       router.restart_events[0]["restarted"])
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    # its dataclasses resolve their annotations through sys.modules
+    sys.modules.setdefault(spec.name, smoke)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+class _Jittered(T.executors.SimExecutor):
+    """A sim executor whose iterations take a random multiple (drawn from
+    a seeded stream) of the cost model's time: the spread of the measured
+    step times that set a real-mode fleet's clocks."""
+
+    def __init__(self, cm, rng, lo, hi):
+        super().__init__(cm)
+        self.rng, self.lo, self.hi = rng, lo, hi
+
+    def run_iteration(self, *work):
+        return super().run_iteration(*work) * self.rng.uniform(self.lo,
+                                                               self.hi)
+
+    def fresh(self):
+        return _Jittered(self.cm, self.rng, self.lo, self.hi)
+
+
+# (timing scale, jitter seed): at scale 10 these seeds made a drain set at
+# the first prefilled page start just as replica 2's kill fell due, so its
+# one migration aborted and moved no page
+DRAIN_CASES = [(1.0, 0), (10.0, 41), (10.0, 48), (10.0, 55)]
+
+
+@pytest.mark.parametrize("scale,seed", DRAIN_CASES, ids=str)
+def test_chip_smoke_fleet_drain_always_migrates_pages(scale, seed):
+    """chip_smoke.py's fleet serve phase (three replicas, replica 0
+    drained from request 6's arrival, replica 2 killed at request 10's
+    and restarted warm) on sim replicas of qwen2-vl-2b whose step times
+    are spread 0.3-3x around the cost model's, and ten times slower:
+    wherever the measured clocks put the drain, it migrates payload pages
+    (the phase's gate), and the run stays clean."""
+    import random
+    smoke = _chip_smoke()
+    from repro_torch.launch.serve import build_stack
+    base, classifier, engine_cfg, _, _ = build_stack("qwen2-vl-2b", "sim")
+    engine_cfg = dataclasses.replace(engine_cfg, kv_pages=4096)
+    rng = random.Random(seed)
+    reqs = T.workload.generate(T.workload.WorkloadConfig(
+        mix="MH", rate=4.0, num_requests=16, seed=0, duplicate_prob=0.3,
+        shared_prefix_prob=0.3))
+    fleet = smoke.drain_when_prefilled(T.fleet.Fleet)(
+        [_Jittered(base.cm, rng, 0.3 * scale, 3.0 * scale)
+         for _ in range(smoke.FLEET_REPLICAS)],
+        classifier, engine_cfg, policy="tcm", routing="least-loaded",
+        faults=T.faults.FaultPlan(replica_kills={2: reqs[10].arrival}),
+        fleet=T.fleet.FleetConfig(restarts={2: 1.0}, restart_warm_pages=256),
+        drain_from=6, arrivals=tuple(r.arrival for r in reqs))
+    done = fleet.run_stepped(reqs, max_steps=smoke.FLEET_MAX_STEPS)
+    assert len(done) == len(reqs)
+    assert fleet.drain_events and fleet.kill_events and fleet.restart_events
+    warm = sum(e["warm_pages_imported"] for e in fleet.restart_events)
+    assert warm > 0
+    assert fleet.migrated_pages - warm > 0
+    assert not any(smoke.fleet_audit(fleet, reqs).values())
