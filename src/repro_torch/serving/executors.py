@@ -26,6 +26,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.profiler import ProfileRecord
 
 from .request import TERMINAL_STATES, Modality, Request
@@ -130,8 +131,7 @@ class SimExecutor:
     prefill/decode inside an iteration (max- rather than sum-composition
     of the stage times, up to ``CostModel.overlap_efficiency``); with
     ``overlap=False`` the stages serialize, which is the ablation baseline
-    for benchmarks/encode_overlap.py. Stage-second counters accumulate
-    across iterations so tests can assert work conservation.
+    for benchmarks/encode_overlap.py.
     """
 
     # the sim's "KV" is pure accounting, so shared prefix pages cost
@@ -142,19 +142,14 @@ class SimExecutor:
                  overlap: bool = True):
         self.cm = cost_model
         self.overlap = overlap
-        self.llm_seconds = 0.0       # prefill + decode stage time
-        self.encode_seconds = 0.0    # vision-encode stage time
-        self.overlap_saved_seconds = 0.0
-        self.busy_seconds = 0.0      # sum of returned iteration durations
-        self.prefill_tokens = 0      # prompt tokens actually prefilled
 
     def preprocess_delay(self, req: Request) -> float:
         return self.cm.preprocess_time(req)
 
     def fresh(self) -> "SimExecutor":
         """A cold executor of the same configuration — what a restarted
-        replica binds: same cost model, zeroed counters, no
-        per-request state (all of that died with the old process)."""
+        replica binds: same cost model, no per-request state (all of
+        that died with the old process)."""
         return SimExecutor(self.cm, overlap=self.overlap)
 
     # -- profiler interface -------------------------------------------------
@@ -208,19 +203,13 @@ class SimExecutor:
             t_llm += self.cm.c_base
             for r, c in prefill_work:
                 t_llm += self.cm.prefill_time(c, r.prefilled)
-                self.prefill_tokens += c
         if decode_reqs:
             ctx = sum(r.prompt_tokens + r.decoded for r in decode_reqs)
             t_llm += self.cm.decode_time(len(decode_reqs), ctx)
         saved = 0.0
         if self.overlap and t_enc > 0.0 and t_llm > 0.0:
             saved = self.cm.overlap_efficiency * min(t_llm, t_enc)
-        dur = max(t_llm + t_enc - saved, 1e-3)
-        self.llm_seconds += t_llm
-        self.encode_seconds += t_enc
-        self.overlap_saved_seconds += saved
-        self.busy_seconds += dur
-        return dur
+        return max(t_llm + t_enc - saved, 1e-3)
 
 
 @dataclass(frozen=True)
@@ -310,6 +299,17 @@ class ModelExecutor:
     Greedy tokens (argmax, fed back as the next decode input) are emitted
     into ``emitted``. Every timed region ends in a device synchronise, so
     the profile and the engine clock measure device work, not launches.
+
+    With ``repro_torch.obs`` on, the batched path is traced in spans:
+    ``exec.iteration`` (a whole ``run_iteration``) and
+    ``exec.admission_profile`` (a whole ``isolated_run``) hold
+    ``exec.encode`` (each encode chunk), ``exec.prefill`` (each prefill
+    wave) and ``exec.decode``, each of those ``exec.pack`` (rows and block
+    tables), ``exec.upload`` (the host-to-device copies), ``exec.forward``
+    (the model's enqueue and the argmax) and ``exec.readback``, and
+    ``exec.sync`` each closing synchronise. The counter ``exec.syncs``
+    counts every host-device synchronisation at its call site, on any
+    device: each synchronise, readback and blocking upload.
 
     Replicas of one model share its weights: pass an executor's ``params``
     and ``layers`` to the next one, which then keeps only its own stores,
@@ -405,7 +405,20 @@ class ModelExecutor:
     # -- plumbing -----------------------------------------------------------
     def _sync(self) -> None:
         from repro_torch.device import synchronize
+        obs.count("exec.syncs")
         synchronize(self.device)
+
+    def _wait(self) -> None:
+        """The synchronise that closes a timed region."""
+        with obs.span("exec.sync"):
+            self._sync()
+
+    @staticmethod
+    def _readback(ids) -> np.ndarray:
+        with obs.span("exec.readback"):
+            out = ids.cpu().numpy()
+        obs.count("exec.syncs")
+        return out
 
     def bind_allocator(self, allocator) -> None:
         """Adopt the engine's BlockAllocator: its page ids index the paged
@@ -601,6 +614,7 @@ class ModelExecutor:
 
     def _tokens_for(self, req: Request, start: int, n: int):
         toks = self._prompt_tokens(req)[start:start + n]
+        obs.count("exec.syncs")
         return self.torch.from_numpy(toks).to(self.device)[None]
 
     # -- legacy slot management ---------------------------------------------
@@ -642,6 +656,10 @@ class ModelExecutor:
 
     # -- profiler interface -------------------------------------------------
     def isolated_run(self, req: Request) -> ProfileRecord:
+        with obs.span("exec.admission_profile"):
+            return self._isolated_run(req)
+
+    def _isolated_run(self, req: Request) -> ProfileRecord:
         n = min(req.prompt_tokens, self.max_len - 8)
         meas = n
         t0 = time.perf_counter()
@@ -649,7 +667,7 @@ class ModelExecutor:
             slot = self.acquire_slot(req)
             self.caches[slot] = self._legacy_forward(
                 self._tokens_for(req, 0, n), None, self.caches[slot], 0)[1]
-            self._sync()
+            self._wait()
         else:
             rid = f"__profile__{req.rid}"
             # admission-time profiling borrows pages from the live pool; a
@@ -663,9 +681,11 @@ class ModelExecutor:
             if meas > 0:
                 self.allocator.allocate(rid, meas)
                 try:
-                    toks = self._prompt_tokens(req)[:meas]
-                    self._paged_prefill_call([(rid, toks, 0, 0, meas)])
-                    self._sync()
+                    with obs.span("exec.prefill"):
+                        with obs.span("exec.pack"):
+                            toks = self._prompt_tokens(req)[:meas]
+                        self._paged_prefill_call([(rid, toks, 0, 0, meas)])
+                    self._wait()
                 finally:
                     self.allocator.free(rid)
         prefill = time.perf_counter() - t0
@@ -698,11 +718,12 @@ class ModelExecutor:
         this stands in with a chunk-sized device matmul — the engine clock
         still pays a *measured* per-chunk cost, and subclasses override
         this to run an actual encoder."""
-        n = max(1, min(int(units), 256))
-        x = self.torch.ones((n, 32), dtype=self.torch.float32,
-                            device=self.device)
-        x @ x.T
-        self._sync()
+        with obs.span("exec.encode"):
+            n = max(1, min(int(units), 256))
+            x = self.torch.ones((n, 32), dtype=self.torch.float32,
+                                device=self.device)
+            x @ x.T
+            self._sync()
 
     # -- shared iteration-plan normalization --------------------------------
     # Row filters resolve degenerate corners (mid-plan preemption,
@@ -742,13 +763,14 @@ class ModelExecutor:
     # -- engine interface ----------------------------------------------------
     def run_iteration(self, prefill_work, decode_reqs, encode_work) -> float:
         t0 = time.perf_counter()
-        for req, units in encode_work:
-            self.encode_chunk(req, units)
-        step = self._legacy_iteration if self.legacy else \
-            self._batched_iteration
-        step(self._prefill_rows(prefill_work),
-             self._decode_rows(decode_reqs))
-        self._sync()
+        with obs.span("exec.iteration"):
+            for req, units in encode_work:
+                self.encode_chunk(req, units)
+            step = self._legacy_iteration if self.legacy else \
+                self._batched_iteration
+            step(self._prefill_rows(prefill_work),
+                 self._decode_rows(decode_reqs))
+            self._wait()
         return time.perf_counter() - t0
 
     # -- legacy sequential path (token-parity oracle) ------------------------
@@ -781,6 +803,7 @@ class ModelExecutor:
                 self.caches[slot], rope_start)
             self._ctx[req.rid] = self._ctx.get(req.rid, 0) + n
             if done:
+                obs.count("exec.syncs")
                 tok = int(torch.argmax(logits[0, -1]))
                 self.emitted.setdefault(req.rid, []).append(tok)
         for req in decode_rows:
@@ -792,6 +815,7 @@ class ModelExecutor:
                 tok, torch.full((1, 1), pos, dtype=torch.int64,
                                 device=self.device), self.caches[slot], pos)
             self._ctx[req.rid] += 1
+            obs.count("exec.syncs")
             self.emitted[req.rid].append(int(torch.argmax(logits[0, 0])))
 
     # -- batched paged path ---------------------------------------------------
@@ -805,12 +829,16 @@ class ModelExecutor:
         returns each row's argmax token, on the device."""
         torch = self.torch
         dev = self.device
-        args = [torch.from_numpy(a).to(dev)
-                for a in (tokens, positions, bt, lengths, new_lens)]
+        # five blocking copies from pageable memory: each waits for the
+        # stream
+        with obs.span("exec.upload"):
+            args = [torch.from_numpy(a).to(dev)
+                    for a in (tokens, positions, bt, lengths, new_lens)]
+        obs.count("exec.syncs", len(args))
         tokens, positions, bt, lengths, new_lens = args
         cache = {"stages": self._stores, "block_table": bt,
                  "lengths": lengths, "new_lens": new_lens}
-        with torch.no_grad():
+        with obs.span("exec.forward"), torch.no_grad():
             logits, _, _ = self.T.forward(
                 self.params, self.cfg, tokens, positions=positions,
                 cache=cache, last_pos=torch.clamp(new_lens - 1, min=0),
@@ -829,26 +857,28 @@ class ModelExecutor:
         """rows: [(rid, tokens ndarray, rope_start, write_start, n)].
         Runs one packed prefill step; returns last-token ids (B,) on the
         device (not synchronised)."""
-        if self._stores is None:
-            self._stores = self._make_stores()
-        B = self._bucket(len(rows))
-        C = self._bucket(max(n for *_x, n in rows))
-        page = self.allocator.page_size
-        # live pages after this call's writes: ceil((write_start+n)/page)
-        maxp = self._bucket_pages(
-            max(-(-(ws + n) // page) for _r, _t, _rs, ws, n in rows))
-        self.recompile_keys.add(("prefill", B, C, maxp))
-        toks = np.zeros((B, C), np.int32)
-        pos = np.zeros((B, C), np.int32)
-        lengths = np.zeros((B,), np.int32)
-        new_lens = np.zeros((B,), np.int32)
-        for i, (_rid, t, rope_start, write_start, n) in enumerate(rows):
-            toks[i, :n] = t
-            pos[i] = rope_start + np.arange(C)
-            lengths[i] = write_start
-            new_lens[i] = n
-        bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
-        bt[:len(rows)] = self._block_table_rows([r[0] for r in rows], maxp)
+        with obs.span("exec.pack"):
+            if self._stores is None:
+                self._stores = self._make_stores()
+            B = self._bucket(len(rows))
+            C = self._bucket(max(n for *_x, n in rows))
+            page = self.allocator.page_size
+            # live pages after this call's writes: ceil((write_start+n)/page)
+            maxp = self._bucket_pages(
+                max(-(-(ws + n) // page) for _r, _t, _rs, ws, n in rows))
+            self.recompile_keys.add(("prefill", B, C, maxp))
+            toks = np.zeros((B, C), np.int32)
+            pos = np.zeros((B, C), np.int32)
+            lengths = np.zeros((B,), np.int32)
+            new_lens = np.zeros((B,), np.int32)
+            for i, (_rid, t, rope_start, write_start, n) in enumerate(rows):
+                toks[i, :n] = t
+                pos[i] = rope_start + np.arange(C)
+                lengths[i] = write_start
+                new_lens[i] = n
+            bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
+            bt[:len(rows)] = self._block_table_rows([r[0] for r in rows],
+                                                    maxp)
         return self._step(toks, pos, bt, lengths, new_lens)
 
     def _batched_iteration(self, prefill_rows, decode_rows):
@@ -864,41 +894,49 @@ class ModelExecutor:
                 waves.append([])
             waves[w].append(row)
         for wave in waves:
-            # write_start read per wave: a later wave of the same request
-            # starts where the previous wave's writes ended
-            rows = [(req.rid, self._prompt_tokens(req)[rope:rope + n],
-                     rope, self._ctx.get(req.rid, 0), n)
-                    for req, rope, n, _d in wave]
-            out = self._paged_prefill_call(rows).cpu().numpy()
-            for i, (req, _rope, n, done) in enumerate(wave):
-                self._ctx[req.rid] = rows[i][3] + n
-                if done:
-                    self.emitted.setdefault(req.rid, []).append(int(out[i]))
-        if not decode_rows:
-            return
-        if self._stores is None:
-            self._stores = self._make_stores()
-        B = self._bucket(len(decode_rows))
-        page = self.allocator.page_size
-        # each row writes one token at position ctx, so the live context
-        # after the step is ctx+1 tokens
-        maxp = self._bucket_pages(
-            max(-(-(self._ctx[r.rid] + 1) // page) for r in decode_rows))
-        self.recompile_keys.add(("decode", B, maxp))
-        toks = np.zeros((B, 1), np.int32)
-        pos = np.zeros((B, 1), np.int32)
-        lengths = np.zeros((B,), np.int32)
-        new_lens = np.zeros((B,), np.int32)
-        for i, req in enumerate(decode_rows):
-            toks[i, 0] = self.emitted[req.rid][-1]
-            pos[i, 0] = min(req.prompt_tokens + req.decoded - 1,
-                            self.max_len - 2)
-            lengths[i] = self._ctx[req.rid]
-            new_lens[i] = 1
-        bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
-        bt[:len(decode_rows)] = self._block_table_rows(
-            [r.rid for r in decode_rows], maxp)
-        out = self._step(toks, pos, bt, lengths, new_lens).cpu().numpy()
+            with obs.span("exec.prefill"):
+                # write_start read per wave: a later wave of the same
+                # request starts where the previous wave's writes ended
+                with obs.span("exec.pack"):
+                    rows = [(req.rid, self._prompt_tokens(req)[rope:rope + n],
+                             rope, self._ctx.get(req.rid, 0), n)
+                            for req, rope, n, _d in wave]
+                out = self._readback(self._paged_prefill_call(rows))
+                for i, (req, _rope, n, done) in enumerate(wave):
+                    self._ctx[req.rid] = rows[i][3] + n
+                    if done:
+                        self.emitted.setdefault(req.rid, []).append(
+                            int(out[i]))
+        if decode_rows:
+            with obs.span("exec.decode"):
+                self._decode_call(decode_rows)
+
+    def _decode_call(self, decode_rows):
+        """One fused decode step: a token for each of ``decode_rows``."""
+        with obs.span("exec.pack"):
+            if self._stores is None:
+                self._stores = self._make_stores()
+            B = self._bucket(len(decode_rows))
+            page = self.allocator.page_size
+            # each row writes one token at position ctx, so the live
+            # context after the step is ctx+1 tokens
+            maxp = self._bucket_pages(
+                max(-(-(self._ctx[r.rid] + 1) // page) for r in decode_rows))
+            self.recompile_keys.add(("decode", B, maxp))
+            toks = np.zeros((B, 1), np.int32)
+            pos = np.zeros((B, 1), np.int32)
+            lengths = np.zeros((B,), np.int32)
+            new_lens = np.zeros((B,), np.int32)
+            for i, req in enumerate(decode_rows):
+                toks[i, 0] = self.emitted[req.rid][-1]
+                pos[i, 0] = min(req.prompt_tokens + req.decoded - 1,
+                                self.max_len - 2)
+                lengths[i] = self._ctx[req.rid]
+                new_lens[i] = 1
+            bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
+            bt[:len(decode_rows)] = self._block_table_rows(
+                [r.rid for r in decode_rows], maxp)
+        out = self._readback(self._step(toks, pos, bt, lengths, new_lens))
         for i, req in enumerate(decode_rows):
             self._ctx[req.rid] += 1
             self.emitted[req.rid].append(int(out[i]))
