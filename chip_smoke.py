@@ -811,9 +811,11 @@ def keep_prefill_logits(executor):
     """Keep, for each prefill forward (more than one token) of the
     executor, the logits of row 0's last position: after a request's last
     prefill chunk, the logits its first token was drawn from. Returns the
-    list they are appended to."""
+    list they are appended to. A replayed CUDA graph runs no Python, so
+    the executor runs its forwards eagerly while they are kept."""
     kept = []
     T = executor.T
+    executor._capture = None
 
     class Keeping:
         def __getattr__(self, name):
@@ -1247,12 +1249,15 @@ class EmittedLogits:
     path's prefill calls carry their rids, its decode step runs the rows
     ``_decode_rows`` returned, and the dense-slot path acquires a
     request's slot right before its forward. A later forward for the same
-    index (a re-prefill after a preemption) replaces the row."""
+    index (a re-prefill after a preemption) replaces the row. A replayed
+    CUDA graph runs no Python, so the executor runs its forwards eagerly
+    while it is kept."""
 
     def __init__(self, executor):
         self.rows = {}
         self.rids = self.decode = []
         ex, T, keep = executor, executor.T, self
+        ex._capture = None
 
         class Keeping:
             def __getattr__(self, name):
@@ -1291,14 +1296,17 @@ class EmittedLogits:
         ex._decode_rows, ex._paged_prefill_call = deciding, prefilling
 
 
-def parity_run(torch, executor, classifier, engine_cfg, cache: bool):
+def parity_run(torch, executor, classifier, engine_cfg, cache: bool,
+               keep_logits: bool = True):
     """The mix through ``Engine.step`` on ``executor``, the prefix cache
     on or off, with one recompute-style preemption forced on the first
     running request (as ``measure_real_parity`` does), for at most
     ``SERVE_MAX_ITERS`` steps. Gates: every request finished, the
     allocator's invariants, a token stream for each request, a preemption,
     and with the cache on a prefix hit. Returns the run's streams, logits
-    records, prefix stats, launches and seconds."""
+    records (``keep_logits``, which runs the forwards eagerly; else none,
+    and the batched path replays its CUDA graphs), prefix stats, launches
+    and seconds."""
     from repro_torch.core.scheduler import make_policy
     from repro_torch.device import synchronize
     from repro_torch.kernels import ops
@@ -1307,8 +1315,9 @@ def parity_run(torch, executor, classifier, engine_cfg, cache: bool):
 
     label = (f"legacy parity, {executor.attn_impl}, "
              + ("real-legacy" if executor.legacy else
-                f"cache {'on' if cache else 'off'}"))
-    keep = EmittedLogits(executor)
+                f"cache {'on' if cache else 'off'}")
+             + ("" if keep_logits else ", graphs"))
+    keep = EmittedLogits(executor) if keep_logits else None
     eng = Engine(make_policy("tcm"), executor, classifier,
                  dataclasses.replace(engine_cfg, prefix_cache=cache))
     ops.reset_launch_counts()
@@ -1349,7 +1358,8 @@ def parity_run(torch, executor, classifier, engine_cfg, cache: bool):
         fail(f"{label}: no preemption")
     if cache and not executor.legacy and stats["hits"] < 1:
         fail(f"{label}: no prefix hit")
-    return dict(emitted=emitted, logits=keep.rows, hits=stats["hits"],
+    return dict(emitted=emitted, logits=keep.rows if keep else {},
+                hits=stats["hits"],
                 cow=stats["cow_copies"], counts=counts, secs=secs)
 
 
@@ -1427,7 +1437,12 @@ def legacy_parity_phase(torch):
     ties (``TIE_ULPS``). "kernel": both paged kernels on the batched side,
     ``prefill_attention`` on the dense side; its partings are printed,
     not gated, since the reference promises no parity across attention
-    numerics. Returns the phase's kernel launches."""
+    numerics. On each route the batched cache-on run goes once more with
+    its CUDA graphs (the runs above keep logits, so they run eagerly):
+    the same gates, and the streams equal to the eager run's are printed
+    (the engine's clock is the measured step time, so the two runs need
+    not plan the same batches). Returns the phase's kernel launches."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_stack
     from repro_torch.serving.executors import ModelExecutor
@@ -1474,6 +1489,32 @@ def legacy_parity_phase(torch):
                      idle=("prefill_attention",))
             for name, n in c.items():
                 total[name] = total.get(name, 0) + n
+        ex = ModelExecutor(
+            cfg, dataclasses.replace(base.config, attn_impl=route),
+            device=base.device, params=base.params, layers=base.layers)
+        before = obs.snapshot()["counters"]
+        graphs = parity_run(torch, ex, classifier, engine_cfg, True,
+                            keep_logits=False)
+        after = obs.snapshot()["counters"]
+        n = {k: after.get(f"exec.graph_{k}", 0) - before.get(
+            f"exec.graph_{k}", 0) for k in ("captures", "replays", "eager")}
+        same = sum(graphs["emitted"][rid] == toks
+                   for rid, toks in runs["on"]["emitted"].items())
+        print(f"legacy parity, {route}, graphs: {same} of "
+              f"{len(runs['on']['emitted'])} streams equal to the eager "
+              f"cache-on run's; graph captures {n['captures']}, replays "
+              f"{n['replays']}, eager calls {n['eager']}", flush=True)
+        if n["replays"] <= 0:
+            fail(f"legacy parity, {route}, graphs: no graph replayed")
+        c = graphs["counts"]
+        if route == "gather":
+            need(f"legacy parity, {route}, graphs", c, idle=tuple(c))
+        else:
+            need(f"legacy parity, {route}, graphs", c,
+                 launched=("paged_attention", "paged_prefill_attention"),
+                 idle=("prefill_attention",))
+        for name, k in c.items():
+            total[name] = total.get(name, 0) + k
         parted, tied, lines = parity_compare(runs)
         print("\n".join(f"legacy parity, {route}: {line}"
                         for line in lines), flush=True)

@@ -80,3 +80,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name, negative to take away) to the
+    launch counters: a replayed CUDA graph's launches, which run no
+    Python."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

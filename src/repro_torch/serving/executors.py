@@ -269,6 +269,54 @@ class ExecutorConfig:
 
 
 
+# Calls of at most this many padded tokens (B·C, a decode counting C=1)
+# are captured as CUDA graphs and replayed; larger ones run eagerly. On an
+# H100, full-width qwen2-vl-2b's eager forward takes 18-37 ms to enqueue at
+# every shape; a replay's device time reaches that between 4096 tokens
+# (32 ms) and 8192 (71 ms), past which a graph saves under 5% (PERF.md §5).
+GRAPH_MAX_TOKENS = 4096
+
+
+class CudaGraphCapture:
+    """Captures a function of static tensors as a CUDA graph: run once on
+    a side stream first (the warm-up torch asks for), then captured on
+    that stream into one memory pool shared by all of its owner's graphs.
+    The owner replays them one at a time on one stream and reads each
+    output before the next replay, so no graph needs another's scratch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.stream = torch.cuda.Stream()
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def __call__(self, fn):
+        """-> (graph, fn's output); ``graph.replay()`` redoes fn's device
+        work into that output."""
+        torch = self.torch
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            fn()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self.pool)
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(self.stream)
+        return graph, out
+
+
+@dataclass
+class _Graph:
+    """One call shape's captured forward: its static inputs (tokens,
+    positions, block table, lengths, new_lens), its output ids (B,) and
+    the kernel launches one replay makes, by kernel."""
+    graph: object
+    inputs: tuple
+    out: object
+    launches: dict
+
+
 class ModelExecutor:
     """Real-torch backend over a model config, on the GPU by default.
 
@@ -282,9 +330,19 @@ class ModelExecutor:
     powers of two (the table rounds the batch's max live page count up,
     capped at ``max_pages``), so attention/scatter traffic scales with
     live context instead of the context cap, and the set of distinct call
-    shapes (``recompile_keys``, the specialisation keys of any future
-    captured graph) stays O(log) per axis, bounded by
+    shapes (``recompile_keys``) stays O(log) per axis, bounded by
     ``recompile_bound()``.
+
+    On CUDA the batched path replays a CUDA graph per call shape (batch,
+    chunk, table width: a decode is the shape of a one-token chunk, so a
+    graph serves both), captured at the shape's first call, for every
+    shape of at most ``GRAPH_MAX_TOKENS`` padded tokens; larger calls run
+    eagerly. Each call copies its whole bucket-shaped inputs into the
+    graph's static buffers, so nothing of an earlier call survives in
+    them. A capture is warmed up on inputs that are padding everywhere
+    (its writes land on the trash page) and serves no call, so the
+    kernels' ``launches`` count what each replay launches. The graphs
+    hold the paged stores' pointers and are dropped with them.
 
     ``legacy=True`` keeps one ``forward`` per request per iteration over a
     dense slot cache per request (``max_slots`` of them, at ``max_len``,
@@ -307,9 +365,12 @@ class ModelExecutor:
     wave) and ``exec.decode``, each of those ``exec.pack`` (rows and block
     tables), ``exec.upload`` (the host-to-device copies), ``exec.forward``
     (the model's enqueue and the argmax) and ``exec.readback``, and
-    ``exec.sync`` each closing synchronise. The counter ``exec.syncs``
-    counts every host-device synchronisation at its call site, on any
-    device: each synchronise, readback and blocking upload.
+    ``exec.sync`` each closing synchronise, and ``exec.capture`` each
+    graph capture. The counter ``exec.syncs`` counts every host-device
+    synchronisation at its call site, on any device: each synchronise,
+    readback and blocking upload; ``exec.graph_captures``,
+    ``exec.graph_replays`` and ``exec.graph_eager`` (CUDA calls above the
+    token bound) count how the batched path's forward calls ran.
 
     Replicas of one model share its weights: pass an executor's ``params``
     and ``layers`` to the next one, which then keeps only its own stores,
@@ -401,6 +462,11 @@ class ModelExecutor:
         self._finished_rids = deque()
         self._prompt_cache: dict[str, np.ndarray] = {}
         self.recompile_keys: set[tuple] = set()
+        # captured forwards by call shape (B, C, maxp); None: no capture
+        self._capture = (CudaGraphCapture(torch)
+                         if self.device.type == "cuda" and not self.legacy
+                         else None)
+        self._graphs: dict[tuple, _Graph] = {}
 
     # -- plumbing -----------------------------------------------------------
     def _sync(self) -> None:
@@ -428,6 +494,7 @@ class ModelExecutor:
                 allocator.num_pages != self.allocator.num_pages
                 or allocator.page_size != self.allocator.page_size):
             self._stores = None   # re-created lazily at the new geometry
+            self._graphs = {}     # they hold the old stores' pointers
         self.allocator = allocator
 
     @property
@@ -662,14 +729,7 @@ class ModelExecutor:
     def _isolated_run(self, req: Request) -> ProfileRecord:
         n = min(req.prompt_tokens, self.max_len - 8)
         meas = n
-        t0 = time.perf_counter()
-        if self.legacy:
-            slot = self.acquire_slot(req)
-            self.caches[slot] = self._legacy_forward(
-                self._tokens_for(req, 0, n), None, self.caches[slot], 0)[1]
-            self._wait()
-        else:
-            rid = f"__profile__{req.rid}"
+        if not self.legacy:
             # admission-time profiling borrows pages from the live pool; a
             # near-full pool must clamp the measurement, not crash serving.
             # Prefill is ~linear in tokens at these sizes (the residual
@@ -678,6 +738,18 @@ class ModelExecutor:
             # full pool falls back to the last measured per-token rate.
             meas = min(n, self.allocator.available_pages
                        * self.allocator.page_size)
+            if meas > 0:
+                # the profile times what serving pays, a replay: a new
+                # call shape is captured before the clock starts
+                self._graph_for(self._prefill_shape([meas], [meas]))
+        t0 = time.perf_counter()
+        if self.legacy:
+            slot = self.acquire_slot(req)
+            self.caches[slot] = self._legacy_forward(
+                self._tokens_for(req, 0, n), None, self.caches[slot], 0)[1]
+            self._wait()
+        else:
+            rid = f"__profile__{req.rid}"
             if meas > 0:
                 self.allocator.allocate(rid, meas)
                 try:
@@ -826,24 +898,83 @@ class ModelExecutor:
     def _step(self, tokens, positions, bt, lengths, new_lens):
         """One forward over the paged stores (prefill chunk or decode:
         decode is a 1-token prefill with new_lens 1 -> last_pos 0);
-        returns each row's argmax token, on the device."""
+        returns each row's argmax token, on the device: on CUDA, up to
+        the token bound, the output of the call shape's graph, which the
+        shape's next call overwrites."""
+        from repro_torch.kernels import ops
         torch = self.torch
-        dev = self.device
+        host = (tokens, positions, bt, lengths, new_lens)
+        g = self._graph_for((*tokens.shape, bt.shape[1]))
         # five blocking copies from pageable memory: each waits for the
         # stream
         with obs.span("exec.upload"):
-            args = [torch.from_numpy(a).to(dev)
-                    for a in (tokens, positions, bt, lengths, new_lens)]
-        obs.count("exec.syncs", len(args))
-        tokens, positions, bt, lengths, new_lens = args
+            if g is None:
+                args = [torch.from_numpy(a).to(self.device) for a in host]
+            else:
+                for buf, a in zip(g.inputs, host):
+                    buf.copy_(torch.from_numpy(a))
+        obs.count("exec.syncs", len(host))
+        with obs.span("exec.forward"):
+            if g is None:
+                if self._capture is not None:
+                    obs.count("exec.graph_eager")
+                return self._forward(*args)
+            g.graph.replay()
+        ops.add_launch_counts(g.launches)
+        obs.count("exec.graph_replays")
+        return g.out
+
+    def _forward(self, tokens, positions, bt, lengths, new_lens):
+        """The model over the paged stores and the argmax, on device
+        tensors: each row's next token (B,)."""
+        torch = self.torch
         cache = {"stages": self._stores, "block_table": bt,
                  "lengths": lengths, "new_lens": new_lens}
-        with obs.span("exec.forward"), torch.no_grad():
+        with torch.no_grad():
             logits, _, _ = self.T.forward(
                 self.params, self.cfg, tokens, positions=positions,
                 cache=cache, last_pos=torch.clamp(new_lens - 1, min=0),
                 attn_impl=self.attn_impl, layers=self.layers)
             return torch.argmax(logits[:, 0], dim=-1)
+
+    def _graph_for(self, shape):
+        """The captured forward of call shape ``(B, C, maxp)``, captured
+        at its first call; None where the call runs eagerly (no capture
+        here, or more than ``GRAPH_MAX_TOKENS`` padded tokens)."""
+        if self._capture is None:
+            return None
+        g = self._graphs.get(shape)
+        if g is None and shape[0] * shape[1] <= GRAPH_MAX_TOKENS:
+            g = self._graphs[shape] = self._capture_graph(shape)
+        return g
+
+    def _capture_graph(self, shape) -> _Graph:
+        from repro_torch.kernels import ops
+        torch = self.torch
+        B, C, maxp = shape
+        with obs.span("exec.capture"):
+            if self._stores is None:
+                self._stores = self._make_stores()
+            i32 = dict(dtype=torch.int32, device=self.device)
+            # padding everywhere: the warm-up writes the trash page only
+            inputs = (torch.zeros((B, C), **i32), torch.zeros((B, C), **i32),
+                      torch.full((B, maxp), self.allocator.num_pages, **i32),
+                      torch.zeros((B,), **i32), torch.zeros((B,), **i32))
+            before = ops.launch_counts()
+            launched = {}
+
+            def forward():
+                at = ops.launch_counts()
+                out = self._forward(*inputs)
+                launched.update({k: n - at[k] for k, n in
+                                 ops.launch_counts().items()})
+                return out
+            graph, out = self._capture(forward)
+            # the warm-up and the capture served no call
+            ops.add_launch_counts({k: before[k] - n for k, n in
+                                   ops.launch_counts().items()})
+        obs.count("exec.graph_captures")
+        return _Graph(graph, inputs, out, launched)
 
     def _block_table_rows(self, rids, maxp: int) -> np.ndarray:
         trash = self.allocator.num_pages
@@ -853,6 +984,14 @@ class ModelExecutor:
             bt[i, :len(pages)] = pages
         return bt
 
+    def _prefill_shape(self, ns, ends):
+        """(B, C, maxp) of a packed prefill of rows of ``ns`` tokens whose
+        writes end at ``ends``: the batch, the widest chunk and the live
+        pages after the writes, ceil(end / page), each bucketed."""
+        page = self.allocator.page_size
+        return (self._bucket(len(ns)), self._bucket(max(ns)),
+                self._bucket_pages(max(-(-e // page) for e in ends)))
+
     def _paged_prefill_call(self, rows):
         """rows: [(rid, tokens ndarray, rope_start, write_start, n)].
         Runs one packed prefill step; returns last-token ids (B,) on the
@@ -860,12 +999,8 @@ class ModelExecutor:
         with obs.span("exec.pack"):
             if self._stores is None:
                 self._stores = self._make_stores()
-            B = self._bucket(len(rows))
-            C = self._bucket(max(n for *_x, n in rows))
-            page = self.allocator.page_size
-            # live pages after this call's writes: ceil((write_start+n)/page)
-            maxp = self._bucket_pages(
-                max(-(-(ws + n) // page) for _r, _t, _rs, ws, n in rows))
+            B, C, maxp = self._prefill_shape(
+                [n for *_x, n in rows], [ws + n for *_x, ws, n in rows])
             self.recompile_keys.add(("prefill", B, C, maxp))
             toks = np.zeros((B, C), np.int32)
             pos = np.zeros((B, C), np.int32)

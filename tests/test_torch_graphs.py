@@ -1,0 +1,324 @@
+"""The batched paged path's captured forwards (``ModelExecutor._step``).
+
+On the CPU a stand-in for ``torch.cuda.CUDAGraph`` drives the graph cache's
+bookkeeping: one capture per call shape and replays after it, static inputs
+rewritten whole, every graph dropped with the paged stores, calls above
+``GRAPH_MAX_TOKENS`` eager, no capture inside ``isolated_run``'s timed
+region, at most ``recompile_bound()`` graphs, the three counters, and the
+kernels' launch counters as an eager run leaves them.
+
+On the card (marked ``gpu``) the same plan runs through the captured graphs
+and through the eager forward for reduced qwen2-vl-2b (M-RoPE), chatglm3-6b
+and phi3.5-moe (the MoE ``index`` dispatch), and must emit the same tokens
+and count the same kernel launches. Run it with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_graphs.py
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch import configs, obs
+from repro_torch.cache import BlockAllocator
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as dec
+from repro_torch.kernels import paged_prefill_attention as pre
+from repro_torch.serving import executors as E
+from repro_torch.serving.request import Modality, Request, State
+
+MAX_LEN, PAGE, CHUNK, ENCODE, PAGES = 64, 16, 12, 128, 64
+# (rid, modality, prompt tokens, output tokens, encoder units)
+SPECS = [("t0", Modality.TEXT, 23, 12, 0), ("i1", Modality.IMAGE, 30, 10, 40),
+         ("v2", Modality.VIDEO, 45, 4, 300), ("t3", Modality.TEXT, 9, 14, 0)]
+COUNTERS = ("exec.graph_captures", "exec.graph_replays", "exec.graph_eager")
+
+
+@pytest.fixture(autouse=True)
+def _clean():
+    obs.disable()
+    obs.reset()
+    ops.reset_launch_counts()
+    yield
+    obs.reset()
+    ops.reset_launch_counts()
+
+
+class _FakeGraph:
+    """Stands in for ``torch.cuda.CUDAGraph``: a replay reruns the captured
+    function on the static inputs into the captured output, and, as a real
+    replay runs no Python, leaves the launch counters as they were."""
+
+    def __init__(self, fn, out, log):
+        self.fn, self.out, self.log = fn, out, log
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        self.log.append("replay")
+        before = ops.launch_counts()
+        self.out.copy_(self.fn())
+        ops.add_launch_counts({k: before[k] - n
+                               for k, n in ops.launch_counts().items()})
+
+
+class _FakeCapture:
+    """Stands in for ``CudaGraphCapture``: a warm-up, then the capture."""
+
+    def __init__(self):
+        self.log, self.graphs = [], []
+
+    def __call__(self, fn):
+        fn()
+        out = fn()
+        self.log.append("capture")
+        g = _FakeGraph(fn, out, self.log)
+        self.graphs.append(g)
+        return g, out
+
+
+def _executor(arch="chatglm3-6b", device="cpu", graphs=True):
+    cfg = configs.get_reduced(arch)
+    if device == "cpu":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ex = E.ModelExecutor(cfg, E.ExecutorConfig(max_slots=4, max_len=MAX_LEN,
+                                               page_size=PAGE),
+                         device=device)
+    if device == "cpu" and graphs:
+        ex._capture = _FakeCapture()
+    elif not graphs:
+        ex._capture = None          # the eager forward, called directly
+    return ex
+
+
+def _counting(ex):
+    """Make each forward count one launch of each paged kernel, as the
+    kernels' Python wrappers do on the card (on the CPU they launch
+    nothing)."""
+    forward = ex._forward
+
+    def counted(*args):
+        dec.launches += 1
+        pre.launches += 2
+        return forward(*args)
+    ex._forward = counted
+
+
+def _plan(reqs, left, step):
+    """(prefill work, decode requests, encode work) of one step: encode
+    chunks first, then prefill chunks of the encoded prompts (t0's prompt
+    as two chunks of one plan at step 0: two waves), and decode."""
+    encode = [(r, min(ENCODE, left[r.rid])) for r in reqs
+              if r.state is State.ENCODING]
+    prefill = []
+    for r in reqs:
+        if r.state is not State.PREFILLING:
+            continue
+        rest = r.prompt_tokens - r.prefilled
+        if step == 0 and r.rid == "t0":
+            prefill += [(r, CHUNK), (r, rest - CHUNK)]
+        else:
+            prefill.append((r, min(CHUNK, rest)))
+    decode = [r for r in reqs if r.state is State.RUNNING]
+    return prefill, decode, encode
+
+
+def _drive(ex):
+    """Admission profiles, then engine-like steps to the end: the tokens
+    and the decode batch sizes."""
+    alloc = BlockAllocator(num_pages=PAGES, page_size=PAGE)
+    ex.bind_allocator(alloc)
+    reqs = [Request(rid=rid, modality=m, arrival=0.0, text_tokens=p,
+                    mm_units=u, prompt_tokens=p, output_tokens=o)
+            for rid, m, p, o, u in SPECS]
+    left = {r.rid: r.mm_units for r in reqs}
+    for r in reqs:
+        ex.isolated_run(r)
+        alloc.allocate(r.rid, r.prompt_tokens + r.output_tokens + 2)
+        r.state = State.ENCODING if r.mm_units else State.PREFILLING
+    sizes = []
+    for step in range(100):
+        prefill, decode, encode = _plan(reqs, left, step)
+        if not (prefill or decode or encode):
+            break
+        ex.run_iteration(prefill, decode, encode)
+        if decode:
+            sizes.append(len(decode))
+        for r, units in encode:
+            left[r.rid] -= units
+            if not left[r.rid]:
+                r.state = State.PREFILLING
+        for r, c in prefill:
+            r.prefilled += c
+            if r.prefilled >= r.prompt_tokens:
+                r.state, r.decoded = State.RUNNING, 1
+        for r in decode:
+            r.decoded += 1
+            if r.decoded >= r.output_tokens:
+                r.state = State.FINISHED
+                alloc.free(r.rid)
+                ex.release_slot(r)
+    assert all(r.state is State.FINISHED for r in reqs)
+    return {r.rid: list(ex.emitted[r.rid]) for r in reqs}, sizes
+
+
+def _counters():
+    got = obs.snapshot()["counters"]
+    return [got.get(name, 0) for name in COUNTERS]
+
+
+def _shapes(ex):
+    """The call shapes (B, C, maxp) of the executor's recompile keys."""
+    return {(k[1], k[2], k[3]) if k[0] == "prefill" else (k[1], 1, k[2])
+            for k in ex.recompile_keys}
+
+
+def test_one_capture_per_shape_then_replays_and_the_same_tokens():
+    eager = _executor(graphs=False)
+    _counting(eager)
+    want, sizes = _drive(eager)
+    want_launches = ops.launch_counts()
+    assert _counters() == [0, 0, 0]     # no capture machinery, no counts
+    ops.reset_launch_counts()
+    ex = _executor()
+    _counting(ex)
+    got, sizes_g = _drive(ex)
+    assert got == want and sizes_g == sizes
+    # a decode batch shrank inside its bucket (4 rows, then 3)
+    assert 4 in sizes and 3 in sizes
+    fake = ex._capture
+    assert len(fake.graphs) == len(ex._graphs) == len(set(ex._graphs))
+    assert set(ex._graphs) <= _shapes(ex)
+    assert len(ex._graphs) <= ex.recompile_bound()
+    calls = sum(g.replays for g in fake.graphs)
+    captures, replays, eager_calls = _counters()
+    assert (captures, replays, eager_calls) == (len(ex._graphs), calls, 0)
+    # each graph replayed at least once, some more than once
+    assert all(g.replays >= 1 for g in fake.graphs)
+    assert calls > captures
+    # the launch counters read as the eager run's: replays count, the
+    # captures' warm-ups do not
+    assert ops.launch_counts() == want_launches
+    assert want_launches["paged_attention"] == calls
+
+
+def test_static_inputs_are_rewritten_whole():
+    """A decode of 3 rows after one of 4 in the same bucket: row 3 of the
+    static inputs is padding again (trash page, length 0, new_lens 0)."""
+    ex = _executor()
+    alloc = BlockAllocator(num_pages=PAGES, page_size=PAGE)
+    ex.bind_allocator(alloc)
+    reqs = []
+    for i in range(4):
+        r = Request(rid=f"r{i}", modality=Modality.TEXT, arrival=0.0,
+                    text_tokens=20 + i, prompt_tokens=20 + i,
+                    output_tokens=4)
+        r.state, r.decoded = State.RUNNING, 1
+        alloc.allocate(r.rid, 40)
+        ex._ctx[r.rid] = r.prompt_tokens
+        ex.emitted[r.rid] = [7 + i]
+        reqs.append(r)
+    ex._decode_call(reqs)
+    (shape,) = ex._graphs
+    g = ex._graphs[shape]
+    tokens, positions, bt, lengths, new_lens = (a.clone() for a in g.inputs)
+    assert shape[0] == 4 and shape[1] == 1
+    assert int(new_lens[3]) == 1 and int(lengths[3]) == 23
+    assert (bt[3] != PAGES).any()
+    ex._decode_call(reqs[:3])
+    assert list(ex._graphs) == [shape]
+    tokens, positions, bt, lengths, new_lens = g.inputs
+    assert (bt[3] == PAGES).all()
+    assert int(lengths[3]) == 0 and int(new_lens[3]) == 0
+    assert int(tokens[3, 0]) == 0 and int(positions[3, 0]) == 0
+    assert int(new_lens[:3].sum()) == 3
+    assert _counters() == [1, 2, 0]
+
+
+def test_every_graph_is_dropped_with_the_stores():
+    ex = _executor()
+    _drive(ex)
+    assert ex._graphs and ex._stores is not None
+    # the same geometry keeps the stores, and so the graphs
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    assert ex._graphs and ex._stores is not None
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES // 2, page_size=PAGE))
+    assert ex._graphs == {} and ex._stores is None
+    captures = _counters()[0]
+    r = Request(rid="again", modality=Modality.TEXT, arrival=0.0,
+                text_tokens=9, prompt_tokens=9, output_tokens=2)
+    ex.isolated_run(r)
+    (g,) = ex._graphs.values()
+    assert _counters()[0] == captures + 1
+    # captured afresh, over the new stores: the warm-up's table is the new
+    # trash page
+    assert ex._capture.graphs[-1] is g.graph and ex._stores is not None
+
+
+def test_calls_above_the_token_bound_run_eagerly(monkeypatch):
+    monkeypatch.setattr(E, "GRAPH_MAX_TOKENS", 8)
+    want, _ = _drive(_executor(graphs=False))
+    obs.reset()
+    ex = _executor()
+    got, _ = _drive(ex)
+    assert got == want
+    assert ex._graphs and all(B * C <= 8 for B, C, _p in ex._graphs)
+    big = {s for s in _shapes(ex) if s[0] * s[1] > 8}
+    assert big and not big & set(ex._graphs)
+    captures, replays, eager_calls = _counters()
+    assert captures == len(ex._graphs) and replays > 0 and eager_calls > 0
+    # an eager executor counts no eager calls: only a capturing one does
+    obs.reset()
+    _drive(_executor(graphs=False))
+    assert _counters() == [0, 0, 0]
+
+
+def test_isolated_run_times_no_capture(monkeypatch):
+    ex = _executor()
+    log = ex._capture.log
+    clock = E.time.perf_counter
+
+    def logged():
+        log.append("clock")
+        return clock()
+    monkeypatch.setattr(E.time, "perf_counter", logged)
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    for rid, prompt in (("a", 23), ("b", 20), ("c", 45)):
+        del log[:]
+        ex.isolated_run(Request(rid=rid, modality=Modality.TEXT, arrival=0.0,
+                                text_tokens=prompt, prompt_tokens=prompt,
+                                output_tokens=2))
+        first, last = log.index("clock"), len(log) - 1 - log[::-1].index(
+            "clock")
+        assert log[first:last + 1] == ["clock", "replay", "clock"], log
+        # "b" has "a"'s shape: no capture at all
+        assert log[:first] == ([] if rid == "b" else ["capture"]), log
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "chatglm3-6b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_cuda_graphs_emit_the_eager_tokens_and_launches(arch):
+    """The plan through the captured graphs and through the eager forward
+    on the card: the same tokens and the same kernel launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eager = _executor(arch, "cuda", graphs=False)
+    want, sizes = _drive(eager)
+    torch.cuda.synchronize()
+    want_launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    obs.reset()
+    ex = _executor(arch, "cuda")
+    assert isinstance(ex._capture, E.CudaGraphCapture)
+    got, sizes_g = _drive(ex)
+    torch.cuda.synchronize()
+    assert 4 in sizes and 3 in sizes and sizes_g == sizes
+    assert got == want
+    assert ops.launch_counts() == want_launches
+    assert want_launches["paged_attention"] > 0
+    assert want_launches["paged_prefill_attention"] > 0
+    captures, replays, eager_calls = _counters()
+    assert captures == len(ex._graphs) > 0 and replays > captures
+    assert eager_calls == 0
+    assert len(ex._graphs) <= ex.recompile_bound()
