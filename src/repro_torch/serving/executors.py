@@ -309,12 +309,14 @@ class CudaGraphCapture:
 @dataclass
 class _Graph:
     """One call shape's captured forward: its static inputs (tokens,
-    positions, block table, lengths, new_lens), its output ids (B,) and
-    the kernel launches one replay makes, by kernel."""
+    positions, block table, lengths, new_lens), its output ids (B,), the
+    kernel launches one replay makes, by kernel, and the seconds of the
+    last timed isolated prefill of the shape (None until one is kept)."""
     graph: object
     inputs: tuple
     out: object
     launches: dict
+    price: float | None = None
 
 
 class ModelExecutor:
@@ -370,7 +372,11 @@ class ModelExecutor:
     synchronisation at its call site, on any device: each synchronise,
     readback and blocking upload; ``exec.graph_captures``,
     ``exec.graph_replays`` and ``exec.graph_eager`` (CUDA calls above the
-    token bound) count how the batched path's forward calls ran.
+    token bound) count how the batched path's forward calls ran;
+    ``exec.price_reused`` and ``exec.price_timed`` how ``isolated_e2e``
+    priced each new request: from the kept seconds of a timed isolated
+    prefill of its call shape (stored on the shape's graph, and dropped
+    with it), or by an ``isolated_run``.
 
     Replicas of one model share its weights: pass an executor's ``params``
     and ``layers`` to the next one, which then keeps only its own stores,
@@ -728,7 +734,7 @@ class ModelExecutor:
 
     def _isolated_run(self, req: Request) -> ProfileRecord:
         n = min(req.prompt_tokens, self.max_len - 8)
-        meas = n
+        meas, kept = n, None
         if not self.legacy:
             # admission-time profiling borrows pages from the live pool; a
             # near-full pool must clamp the measurement, not crash serving.
@@ -740,8 +746,12 @@ class ModelExecutor:
                        * self.allocator.page_size)
             if meas > 0:
                 # the profile times what serving pays, a replay: a new
-                # call shape is captured before the clock starts
-                self._graph_for(self._prefill_shape([meas], [meas]))
+                # call shape is captured before the clock starts. Its time
+                # is kept as the shape's price unless this call captured
+                # the graph, whose first replay also uploads it
+                shape = self._prefill_shape([meas], [meas])
+                kept = self._graphs.get(shape)
+                self._graph_for(shape)
         t0 = time.perf_counter()
         if self.legacy:
             slot = self.acquire_slot(req)
@@ -761,6 +771,8 @@ class ModelExecutor:
                 finally:
                     self.allocator.free(rid)
         prefill = time.perf_counter() - t0
+        if kept is not None:
+            kept.price = prefill
         if meas < n:
             prefill = (prefill * n / meas if meas > 0
                        else getattr(self, "_profile_rate", 1e-4) * n)
@@ -773,10 +785,28 @@ class ModelExecutor:
             mm_units=req.mm_units, prompt_tokens=req.prompt_tokens,
             preprocess_time=0.0, encode_time=0.0, prefill_time=prefill)
 
+    def _kept_price(self, req: Request) -> float | None:
+        """The kept seconds of a timed isolated prefill of the call shape
+        ``req``'s own isolated prefill takes; None where that shape has no
+        graph (no capture here, or above the token bound) or no price."""
+        n = min(req.prompt_tokens, self.max_len - 8)
+        if n <= 0:
+            return None
+        g = self._graphs.get(self._prefill_shape([n], [n]))
+        return None if g is None else g.price
+
     def isolated_e2e(self, req: Request) -> float:
         ttft = self._isolated_ttft.get(req.rid)
         if ttft is None:
-            ttft = self.isolated_run(req).ttft
+            # a replayed shape runs the same recorded kernels at every
+            # call: its kept price stands for a timed run, which would
+            # borrow pages and wait for the card
+            ttft = self._kept_price(req)
+            if ttft is None:
+                obs.count("exec.price_timed")
+                ttft = self.isolated_run(req).ttft
+            else:
+                obs.count("exec.price_reused")
             self._isolated_ttft[req.rid] = ttft
         cached = min(req.cached_prefix_tokens, max(req.prompt_tokens - 1, 0))
         if cached > 0 and req.prompt_tokens > 0:

@@ -5,7 +5,10 @@ bookkeeping: one capture per call shape and replays after it, static inputs
 rewritten whole, every graph dropped with the paged stores, calls above
 ``GRAPH_MAX_TOKENS`` eager, no capture inside ``isolated_run``'s timed
 region, at most ``recompile_bound()`` graphs, the three counters, and the
-kernels' launch counters as an eager run leaves them.
+kernels' launch counters as an eager run leaves them. And the admission
+price that ``isolated_e2e`` reads off a shape's graph: kept from a timed
+``isolated_run`` that did not capture it, reused with no run, dropped with
+the graphs, never kept where no graph serves the shape.
 
 On the card (marked ``gpu``) the same plan runs through the captured graphs
 and through the eager forward for reduced qwen2-vl-2b (M-RoPE), chatglm3-6b
@@ -293,6 +296,174 @@ def test_isolated_run_times_no_capture(monkeypatch):
         assert log[first:last + 1] == ["clock", "replay", "clock"], log
         # "b" has "a"'s shape: no capture at all
         assert log[:first] == ([] if rid == "b" else ["capture"]), log
+
+
+def _text(rid, prompt, out=2):
+    return Request(rid=rid, modality=Modality.TEXT, arrival=0.0,
+                   text_tokens=prompt, prompt_tokens=prompt,
+                   output_tokens=out)
+
+
+def _timing(ex):
+    """The rids ``isolated_e2e`` times: it looks ``isolated_run`` up on the
+    executor, as the benchmark's trace wrapper replaces it there."""
+    timed, run = [], ex.isolated_run
+
+    def spy(req):
+        timed.append(req.rid)
+        return run(req)
+    ex.isolated_run = spy
+    return timed
+
+
+def _prices():
+    got = obs.snapshot()["counters"]
+    return got.get("exec.price_reused", 0), got.get("exec.price_timed", 0)
+
+
+def test_a_kept_shape_prices_the_next_arrival_with_no_run():
+    ex = _executor()
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    timed = _timing(ex)
+    # 23, 20 and 30 tokens take one call shape, (1, 32, 2)
+    slo = [ex.isolated_e2e(_text(rid, p, out))
+           for rid, p, out in (("a", 23, 2), ("b", 20, 3), ("c", 30, 5))]
+    (shape,) = ex._graphs
+    g = ex._graphs[shape]
+    assert shape == (1, 32, 2)
+    assert timed == ["a", "b"] and g.graph.replays == 2
+    assert g.price is not None and g.price > 0
+    # b's timed call is the kept price; c pays it with no run
+    assert slo[1:] == [g.price * (1 + 0.1 * out) for out in (3, 5)]
+    assert _prices() == (1, 2)
+
+
+def test_the_first_replay_after_a_capture_is_not_kept():
+    ex = _executor()
+    alloc = BlockAllocator(num_pages=PAGES, page_size=PAGE)
+    ex.bind_allocator(alloc)
+    ex.isolated_run(_text("a", 23))
+    (g,) = ex._graphs.values()
+    assert g.graph.replays == 1 and g.price is None
+    ex.isolated_run(_text("b", 20))
+    assert g.graph.replays == 2 and g.price is not None
+    # a shape a serving step captured: the profile's replay is its second
+    r = _text("s", 9)
+    alloc.allocate(r.rid, 16)
+    r.state = State.PREFILLING
+    ex.run_iteration([(r, 9)], [], [])
+    served = ex._graphs[(1, 16, 1)]
+    assert served.graph.replays == 1 and served.price is None
+    ex.isolated_run(_text("c", 12))
+    assert served.graph.replays == 2 and served.price is not None
+
+
+@pytest.mark.parametrize("case", ["above the bound", "no graphs", "legacy"])
+def test_these_time_every_arrival(case, monkeypatch):
+    if case == "above the bound":
+        monkeypatch.setattr(E, "GRAPH_MAX_TOKENS", 16)
+    if case == "legacy":
+        cfg = dataclasses.replace(configs.get_reduced("chatglm3-6b"),
+                                  dtype=torch.float32)
+        ex = E.ModelExecutor(cfg, E.ExecutorConfig(
+            max_slots=4, max_len=MAX_LEN, page_size=PAGE, legacy=True),
+            device="cpu")
+        assert ex.legacy and ex._capture is None
+    else:
+        ex = _executor(graphs=case != "no graphs")
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    timed = _timing(ex)
+    rids = ["a", "b", "c", "d"]
+    for rid, prompt in zip(rids, (23, 20, 30, 25)):
+        ex.isolated_e2e(_text(rid, prompt))
+    assert timed == rids and _prices() == (0, 4)
+    assert ex._graphs == {}
+
+
+def test_a_hit_borrows_no_pages_with_the_pool_full():
+    ex = _executor()
+    alloc = BlockAllocator(num_pages=PAGES, page_size=PAGE)
+    ex.bind_allocator(alloc)
+    for rid in ("a", "b"):
+        ex.isolated_e2e(_text(rid, 23))
+    (g,) = ex._graphs.values()
+    alloc.allocate("hog", PAGES * PAGE)
+    assert alloc.available_pages == 0
+    borrowed, allocate = [], alloc.allocate
+    alloc.allocate = lambda rid, n: borrowed.append(rid) or allocate(rid, n)
+    timed = _timing(ex)
+    syncs = obs.snapshot()["counters"].get("exec.syncs", 0)
+    assert ex.isolated_e2e(_text("c", 30)) == g.price * (1 + 0.1 * 2)
+    assert timed == [] and borrowed == [] and alloc.available_pages == 0
+    assert obs.snapshot()["counters"].get("exec.syncs", 0) == syncs
+    assert g.graph.replays == 2
+
+
+def test_a_new_geometry_drops_the_kept_prices():
+    ex = _executor()
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    timed = _timing(ex)
+    for rid in ("a", "b"):
+        ex.isolated_e2e(_text(rid, 23))
+    (g,) = ex._graphs.values()
+    assert g.price is not None
+    # the same geometry keeps the graphs, and so their prices
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    ex.isolated_e2e(_text("c", 30))
+    assert timed == ["a", "b"]
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES // 2, page_size=PAGE))
+    assert ex._graphs == {}
+    for rid in ("d", "e", "f"):
+        ex.isolated_e2e(_text(rid, 23))
+    # captured afresh (d), kept again (e), reused (f)
+    assert timed == ["a", "b", "d", "e"]
+    assert ex._graphs[(1, 32, 2)] is not g
+
+
+def test_the_counters_count_reused_and_timed_prices():
+    ex = _executor()
+    ex.bind_allocator(BlockAllocator(num_pages=PAGES, page_size=PAGE))
+    timed = _timing(ex)
+    # shapes (1, 32, 2) five times, (1, 16, 1) three times, (1, 64, 4) once
+    prompts = (23, 9, 20, 12, 30, 25, 45, 15, 28)
+    reqs = [_text(f"r{i}", p) for i, p in enumerate(prompts)]
+    for r in reqs:
+        ex.isolated_e2e(r)
+    reused, n_timed = _prices()
+    assert n_timed == len(timed) == 5 and reused == 4
+    # a repriced request reads its own memo: neither counter moves
+    for r in reqs:
+        r.cached_prefix_tokens = 4
+        ex.isolated_e2e(r)
+    assert _prices() == (reused, n_timed) and len(timed) == 5
+
+
+def test_an_engine_emits_the_same_tokens_with_kept_prices():
+    from repro_torch.core.classifier import NaiveClassifier
+    from repro_torch.core.scheduler import make_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    specs = ((23, 6), (20, 4), (9, 5), (30, 7), (25, 3), (12, 8), (28, 4))
+    runs = {}
+    for reuse in (True, False):
+        obs.reset()
+        ex = _executor()
+        if not reuse:
+            ex._kept_price = lambda req: None     # every arrival timed
+        timed = _timing(ex)
+        reqs = [_text(f"r{i}", p, o) for i, (p, o) in enumerate(specs)]
+        eng = Engine(make_policy("tcm"), ex, NaiveClassifier(),
+                     EngineConfig(token_budget=CHUNK, kv_pages=PAGES,
+                                  page_size=PAGE))
+        eng.run(reqs, max_iters=500)
+        assert len(eng.finished) == len(reqs)
+        runs[reuse] = ({r.rid: list(ex.emitted[r.rid]) for r in reqs},
+                       _prices(), len(timed))
+    (tokens, prices, n_timed), (want, prices_t, n_timed_t) = \
+        runs[True], runs[False]
+    assert tokens == want
+    assert all(len(t) == o for t, (_p, o) in zip(want.values(), specs))
+    assert prices == (3, 4) and n_timed == 4
+    assert prices_t == (0, len(specs)) and n_timed_t == len(specs)
 
 
 @pytest.mark.gpu
