@@ -1246,16 +1246,16 @@ class EmittedLogits:
     """Keeps, for each (rid, token index) ``executor`` emits, the logits
     row (bf16, on the device) of the forward that drew the token. A
     forward's rows are named as the executor lays them out: the batched
-    path's prefill calls carry their rids, its decode step runs the rows
-    ``_decode_rows`` returned, and the dense-slot path acquires a
-    request's slot right before its forward. A later forward for the same
+    path's packed calls (prefill waves and decodes alike) carry their
+    rids, and the dense-slot path acquires a request's slot right before
+    its forward. A later forward for the same
     index (a re-prefill after a preemption) replaces the row. A replayed
     CUDA graph runs no Python, so the executor runs its forwards eagerly
     while it is kept."""
 
     def __init__(self, executor):
         self.rows = {}
-        self.rids = self.decode = []
+        self.rids = []
         ex, T, keep = executor, executor.T, self
         ex._capture = None
 
@@ -1280,20 +1280,15 @@ class EmittedLogits:
                 return acquire(req)
             ex.acquire_slot = acquiring
             return
-        decode_rows, prefill_call = ex._decode_rows, ex._paged_prefill_call
+        call = ex._paged_call
 
-        def deciding(reqs):
-            rows = decode_rows(reqs)
-            self.rids = self.decode = [r.rid for r in rows]
-            return rows
-
-        def prefilling(rows):
+        def calling(rows):
             self.rids = [r[0] for r in rows]
             try:
-                return prefill_call(rows)
+                return call(rows)
             finally:
-                self.rids = self.decode
-        ex._decode_rows, ex._paged_prefill_call = deciding, prefilling
+                self.rids = []
+        ex._paged_call = calling
 
 
 def parity_run(torch, executor, classifier, engine_cfg, cache: bool,
@@ -1818,7 +1813,7 @@ def paged_step_times(torch, executor, B=8, ctx=1000, chunk=512):
                 new_lens=np.full(len(rows), n))
             t = {k: torch.from_numpy(np.asarray(v, np.int32)).cuda()
                  for k, v in args.items()}
-            cache = {"stages": executor._stores,
+            cache = {"stages": executor.stores,
                      "block_table": t["block_table"],
                      "lengths": t["lengths"], "new_lens": t["new_lens"]}
 

@@ -1,9 +1,4 @@
-"""Paged KV store: torch page pools + write/read ops per layer and per
-layer stack.
-
-``PagedKVStore`` is the single-layer view (engine bookkeeping, kernel
-tests): (num_pages, page_size, KV, hd) tensors matching the paged
-attention kernels, updated in place by block-table scatters.
+"""Paged KV store: torch page pools and their write/read ops.
 
 ``PagedStackStore`` is the serving executor's batched container — the
 paged KV of one *stack* of layers (one stage's block position), flattened
@@ -30,14 +25,8 @@ slots are read with softmax weight 0, and 0 x NaN would be NaN.
 stack as host arrays — the payload of the page-chain migration protocol
 (serving/migration.py). numpy has no bf16, so a bf16 container travels as
 its int16 bit pattern: the bytes are the container's own.
-
-SSM/xLSTM state caches have *constant* per-request footprint, so they use
-a slot store (``SlotStore``, one row per active request) rather than
-pages.
 """
 from __future__ import annotations
-
-from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -128,91 +117,6 @@ def from_host(a: np.ndarray, dtype: torch.dtype,
     if dtype == torch.bfloat16 and t.dtype == torch.int16:
         t = t.view(torch.bfloat16)
     return t.to(device=device, dtype=dtype)
-
-
-class PagedKVStore:
-    """One layer's paged KV tensors (P, page, KV, hd), updated in place."""
-
-    def __init__(self, k_pages: torch.Tensor, v_pages: torch.Tensor):
-        self.k_pages = k_pages
-        self.v_pages = v_pages
-
-    @classmethod
-    def create(cls, num_pages, page_size, kv_heads, head_dim,
-               dtype=torch.bfloat16, device="cpu"):
-        shape = (num_pages, page_size, kv_heads, head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
-
-    @property
-    def page_size(self) -> int:
-        return self.k_pages.shape[1]
-
-    def write(self, k_new, v_new, page_ids, start: int) -> "PagedKVStore":
-        """Write S new tokens for ONE request, in place.
-
-        k_new/v_new: (S, KV, hd); page_ids: the request's pages in order;
-        start: the request's context length before this write. Returns
-        ``self``."""
-        dev = self.k_pages.device
-        pos = start + torch.arange(k_new.shape[0], device=dev)
-        pids = torch.as_tensor(page_ids, device=dev).long()[
-            pos // self.page_size]
-        offs = pos % self.page_size
-        self.k_pages[pids, offs] = k_new.to(self.k_pages.dtype)
-        self.v_pages[pids, offs] = v_new.to(self.v_pages.dtype)
-        return self
-
-    def write_batch(self, k_new, v_new, block_table, start, new_lens,
-                    trash_page) -> "PagedKVStore":
-        """Batched multi-sequence scatter, in place (``scatter_pages``).
-        Returns ``self``."""
-        scatter_pages(self.k_pages, self.v_pages, k_new, v_new, block_table,
-                      start, new_lens, trash_page)
-        return self
-
-    def gather(self, page_ids):
-        """(n_pages,) -> contiguous (n_pages*page, KV, hd) k, v."""
-        pids = torch.as_tensor(page_ids, device=self.k_pages.device).long()
-        k = self.k_pages[pids].reshape(-1, *self.k_pages.shape[2:])
-        v = self.v_pages[pids].reshape(-1, *self.v_pages.shape[2:])
-        return k, v
-
-
-@runtime_checkable
-class PagedStore(Protocol):
-    """The paged-store surface shared by the transformer's paged cache
-    protocol and the serving executor (DESIGN.md §Ragged paged execution).
-
-    A conforming store keeps one flat page pool per stack and updates it
-    in place; every method returns the store. Per-layer addressing is
-    explicit: ``write_batch``/``gather_batch``/``layer_table`` take the
-    ``layer`` index and offset into the flat pool; block tables stay in
-    allocator page-id space (0..pages_per_layer-2, with
-    ``pages_per_layer-1`` the per-layer trash page for ragged padding).
-
-    Construction goes through ``build`` (the executor sizes
-    ``pages_per_layer`` to allocator capacity + 1 trash page) and the
-    prefix cache's copy-on-write boundary copy through ``copy_page``.
-    """
-
-    @property
-    def pages_per_layer(self) -> int: ...
-
-    @property
-    def page_size(self) -> int: ...
-
-    @property
-    def trash_page(self) -> int: ...
-
-    def write_batch(self, k_new, v_new, block_table, start, new_lens, *,
-                    layer): ...
-
-    def gather_batch(self, block_table, *, layer): ...
-
-    def layer_table(self, block_table, layer): ...
-
-    def copy_page(self, src, dst): ...
 
 
 class PagedStackStore:
@@ -327,31 +231,4 @@ class PagedStackStore:
         rows = self._page_rows(page)
         for pages, a in ((self.k_pages, k), (self.v_pages, v)):
             pages[rows] = from_host(a, pages.dtype, pages.device)
-        return self
-
-
-class SlotStore:
-    """Constant-size per-request state (SSM/xLSTM/conv): one slot per row,
-    updated in place."""
-
-    def __init__(self, data: dict):
-        self.data = data  # name -> (slots, ...) tensors
-
-    @classmethod
-    def create(cls, num_slots: int, shapes: dict, dtypes: dict | None = None,
-               device="cpu"):
-        dtypes = dtypes or {}
-        return cls({name: torch.zeros((num_slots,) + tuple(shape),
-                                      dtype=dtypes.get(name, torch.float32),
-                                      device=device)
-                    for name, shape in shapes.items()})
-
-    def read(self, slot: int) -> dict:
-        return {k: v[slot] for k, v in self.data.items()}
-
-    def write(self, slot: int, values: dict) -> "SlotStore":
-        """Set every state of ``slot`` (``values`` names each), in place.
-        Returns ``self``."""
-        for k, a in self.data.items():
-            a[slot] = values[k]
         return self

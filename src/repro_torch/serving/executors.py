@@ -7,8 +7,9 @@ modality preprocess/encode stage costs. Used for workload-scale scheduler
 experiments (the scheduler sees the identical engine API either way).
 
 ModelExecutor — runs the real torch model, on the GPU by default. The
-default batched mode executes each engine iteration as one packed ragged
-prefill step plus one fused decode step over the whole running set, with
+default batched mode executes each engine iteration as packed ragged
+calls over the paged stores (a prefill wave each, and the decode of the
+whole running set as one call of one-token chunks), with
 per-layer KV in flat paged stores indexed by the engine allocator's block
 tables (DESIGN.md §Batched execution path): the attention and MoE
 decoders. ``legacy=True`` — and every arch outside the paged protocol
@@ -138,8 +139,7 @@ class SimExecutor:
     # nothing to honor: residual chunks simply never reach the cost model
     supports_prefix_cache = True
 
-    def __init__(self, cost_model: CostModel, decode_block: int = 1,
-                 overlap: bool = True):
+    def __init__(self, cost_model: CostModel, overlap: bool = True):
         self.cm = cost_model
         self.overlap = overlap
 
@@ -233,7 +233,6 @@ class ExecutorConfig:
     attn_impl: str = "auto"        # auto | kernel | gather
     page_size: int = 16
     num_pages: int | None = None   # None -> resolved() fills the default
-    ragged: bool = True
 
     def __post_init__(self):
         if self.max_slots < 1:
@@ -323,21 +322,21 @@ class ModelExecutor:
     """Real-torch backend over a model config, on the GPU by default.
 
     Per-layer KV lives in ``PagedStackStore`` page pools shared by every
-    request; the engine allocator's page lists become real block tables.
-    Each iteration runs as at most two forward calls — a packed ragged
-    prefill over this iteration's chunks and one fused decode step over
-    the entire running set — and the stores are updated in place, so a
+    request (``stores``, built on first use); the engine allocator's page
+    lists become real block tables. Every forward of an iteration is one
+    packed call (``_paged_call``) over rows of (rid, tokens, rope start,
+    write start, n): a prefill wave's chunks, and the decode of the entire
+    running set as one-token chunks. The stores are updated in place, so a
     step's cost is independent of KV store *capacity*: only live tokens
     are touched. Batch, chunk, AND block-table width are bucketed to
-    powers of two (the table rounds the batch's max live page count up,
-    capped at ``max_pages``), so attention/scatter traffic scales with
-    live context instead of the context cap, and the set of distinct call
-    shapes (``recompile_keys``) stays O(log) per axis, bounded by
-    ``recompile_bound()``.
+    powers of two (``_call_shape``; the table rounds the batch's max live
+    page count up, capped at ``max_pages``), so attention/scatter traffic
+    scales with live context instead of the context cap, and the set of
+    distinct call shapes ``(B, C, maxp)`` (``recompile_keys``) stays
+    O(log) per axis, bounded by ``recompile_bound()``.
 
-    On CUDA the batched path replays a CUDA graph per call shape (batch,
-    chunk, table width: a decode is the shape of a one-token chunk, so a
-    graph serves both), captured at the shape's first call, for every
+    On CUDA the batched path replays a CUDA graph per call shape,
+    captured at the shape's first call, for every
     shape of at most ``GRAPH_MAX_TOKENS`` padded tokens; larger calls run
     eagerly. Each call copies its whole bucket-shaped inputs into the
     graph's static buffers, so nothing of an earlier call survives in
@@ -416,9 +415,6 @@ class ModelExecutor:
         self.max_slots = config.max_slots
         self.paged_ok = T.paged_supported(cfg)
         self.legacy = config.legacy or not self.paged_ok
-        # ragged=False pins the block table at the max_pages cap — the
-        # fixed-geometry ablation/baseline for the context-sweep benchmark
-        self.ragged = config.ragged
         if config.attn_impl == "auto":
             # hand-written kernels on the card; the gather + mha path on
             # CPU (the kernels' plain versions also run there when asked)
@@ -464,6 +460,7 @@ class ModelExecutor:
         #   prefill per rid: repricing an SLO at admission (prefix claim
         #   shifted) must not re-run a profile prefill — the pool may be
         #   full at that point
+        self._profile_rate = 1e-4     # profile seconds per token, last seen
         self.emitted: dict[str, list[int]] = {}
         self._finished_rids = deque()
         self._prompt_cache: dict[str, np.ndarray] = {}
@@ -507,6 +504,14 @@ class ModelExecutor:
     def capacity_pages(self) -> int:
         return self.allocator.num_pages
 
+    @property
+    def stores(self):
+        """The paged KV stores, per stage ``{bname: PagedStackStore}``,
+        built at the allocator's geometry on first use."""
+        if self._stores is None:
+            self._stores = self._make_stores()
+        return self._stores
+
     def _make_stores(self):
         from repro_torch.cache.paged import PagedStackStore, store_dtype
         cfg = self.cfg
@@ -536,11 +541,16 @@ class ModelExecutor:
         (the engine then never claims or publishes)."""
         return not self.legacy
 
+    def _profile_tokens(self, prompt_tokens: int) -> int:
+        """Tokens an admission profile of a ``prompt_tokens`` prompt runs:
+        the prompt, cut to leave its row room inside the context window."""
+        return min(prompt_tokens, self.max_len - 8)
+
     @property
     def prefix_token_limit(self) -> int:
         """Cap on claimable prefix tokens: a claimed row must still start
         inside the context window so its residual chunk can run."""
-        return max(0, self.max_len - 8)
+        return max(0, self._profile_tokens(self.max_len))
 
     def on_prefix_claim(self, req: Request, tokens: int,
                         cow_src: int | None = None,
@@ -553,10 +563,8 @@ class ModelExecutor:
         self.emitted.pop(req.rid, None)   # recompute re-claims cleanly
         if cow_src is None or cow_dst is None:
             return
-        if self._stores is None:
-            self._stores = self._make_stores()
         with self.torch.no_grad():
-            for stage in self._stores:
+            for stage in self.stores:
                 for s in stage.values():
                     s.copy_page(cow_src, cow_dst)
 
@@ -579,12 +587,10 @@ class ModelExecutor:
         positional. Values are bf16-rounded on write (cache.paged), so
         payload round-trips are bit-exact and migrated prefixes decode the
         same tokens the source would have."""
-        if self._stores is None:
-            self._stores = self._make_stores()
         out = []
         for p in pages:
             parts = []
-            for stage in self._stores:
+            for stage in self.stores:
                 for s in stage.values():
                     k, v = s.export_page(p)
                     parts.append(k.tobytes())
@@ -603,9 +609,7 @@ class ModelExecutor:
         if len(pages) != len(payloads):
             raise ValueError(f"{len(pages)} pages but {len(payloads)} "
                              "payloads")
-        if self._stores is None:
-            self._stores = self._make_stores()
-        stores = [s for stage in self._stores for s in stage.values()]
+        stores = [s for stage in self.stores for s in stage.values()]
         shapes = [(s.layers,) + tuple(s.k_pages.shape[1:]) for s in stores]
         dt = host_dtype(stores[0].k_pages.dtype)
         want = 2 * sum(int(np.prod(sh)) for sh in shapes) * dt.itemsize
@@ -628,8 +632,7 @@ class ModelExecutor:
     def max_pages(self) -> int:
         """Block-table width *cap*: pages covering the per-request context
         window. Per-call tables are length-bucketed below this (see
-        ``_bucket_pages``); ``ragged=False`` pins every call here, the
-        fixed-geometry ablation baseline."""
+        ``_bucket_pages``)."""
         return -(-self.max_len // self.allocator.page_size)
 
     def _bucket_pages(self, need: int) -> int:
@@ -638,8 +641,6 @@ class ModelExecutor:
         O(log) along the context axis), clamped to the ``max_pages`` cap.
         Attention and scatter traffic then scale with the batch's live
         context instead of charging every call the context-cap price."""
-        if not self.ragged:
-            return self.max_pages
         return min(self._bucket(max(need, 1)), self.max_pages)
 
     @staticmethod
@@ -649,15 +650,13 @@ class ModelExecutor:
         return (max(n, 1) - 1).bit_length() + 1
 
     def recompile_bound(self) -> int:
-        """Ceiling on ``len(recompile_keys)``: each call-shape axis is
-        bucketed, so distinct shapes are bounded by the product of O(log)
-        per-axis bucket counts — O(log B · log C · log P) for prefill plus
-        O(log B · log P) for decode."""
-        b_seen = max((k[1] for k in self.recompile_keys), default=1)
-        nb = self._n_buckets(b_seen)
-        nc = self._n_buckets(self.max_len)
-        npg = self._n_buckets(self.max_pages)
-        return nb * nc * npg + nb * npg
+        """Ceiling on ``len(recompile_keys)``: each axis of a call shape
+        ``(B, C, maxp)`` is bucketed, so distinct shapes are bounded by the
+        product of O(log) per-axis bucket counts, O(log B · log C · log P);
+        C's buckets start at 1, a decode's."""
+        b_seen = max((k[0] for k in self.recompile_keys), default=1)
+        return (self._n_buckets(b_seen) * self._n_buckets(self.max_len)
+                * self._n_buckets(self.max_pages))
 
     # -- deterministic token streams / emission -----------------------------
     def _prompt_tokens(self, req: Request) -> np.ndarray:
@@ -733,7 +732,7 @@ class ModelExecutor:
             return self._isolated_run(req)
 
     def _isolated_run(self, req: Request) -> ProfileRecord:
-        n = min(req.prompt_tokens, self.max_len - 8)
+        n = self._profile_tokens(req.prompt_tokens)
         meas, kept = n, None
         if not self.legacy:
             # admission-time profiling borrows pages from the live pool; a
@@ -749,7 +748,7 @@ class ModelExecutor:
                 # call shape is captured before the clock starts. Its time
                 # is kept as the shape's price unless this call captured
                 # the graph, whose first replay also uploads it
-                shape = self._prefill_shape([meas], [meas])
+                shape = self._call_shape([meas], [meas])
                 kept = self._graphs.get(shape)
                 self._graph_for(shape)
         t0 = time.perf_counter()
@@ -766,7 +765,7 @@ class ModelExecutor:
                     with obs.span("exec.prefill"):
                         with obs.span("exec.pack"):
                             toks = self._prompt_tokens(req)[:meas]
-                        self._paged_prefill_call([(rid, toks, 0, 0, meas)])
+                        self._paged_call([(rid, toks, 0, 0, meas)])
                     self._wait()
                 finally:
                     self.allocator.free(rid)
@@ -775,7 +774,7 @@ class ModelExecutor:
             kept.price = prefill
         if meas < n:
             prefill = (prefill * n / meas if meas > 0
-                       else getattr(self, "_profile_rate", 1e-4) * n)
+                       else self._profile_rate * n)
         if n > 0 and meas > 0:
             self._profile_rate = prefill / n
         self.release_slot(req)
@@ -789,10 +788,10 @@ class ModelExecutor:
         """The kept seconds of a timed isolated prefill of the call shape
         ``req``'s own isolated prefill takes; None where that shape has no
         graph (no capture here, or above the token bound) or no price."""
-        n = min(req.prompt_tokens, self.max_len - 8)
+        n = self._profile_tokens(req.prompt_tokens)
         if n <= 0:
             return None
-        g = self._graphs.get(self._prefill_shape([n], [n]))
+        g = self._graphs.get(self._call_shape([n], [n]))
         return None if g is None else g.price
 
     def isolated_e2e(self, req: Request) -> float:
@@ -958,7 +957,7 @@ class ModelExecutor:
         """The model over the paged stores and the argmax, on device
         tensors: each row's next token (B,)."""
         torch = self.torch
-        cache = {"stages": self._stores, "block_table": bt,
+        cache = {"stages": self.stores, "block_table": bt,
                  "lengths": lengths, "new_lens": new_lens}
         with torch.no_grad():
             logits, _, _ = self.T.forward(
@@ -983,8 +982,7 @@ class ModelExecutor:
         torch = self.torch
         B, C, maxp = shape
         with obs.span("exec.capture"):
-            if self._stores is None:
-                self._stores = self._make_stores()
+            self.stores      # built here, not on the capture's stream
             i32 = dict(dtype=torch.int32, device=self.device)
             # padding everywhere: the warm-up writes the trash page only
             inputs = (torch.zeros((B, C), **i32), torch.zeros((B, C), **i32),
@@ -1014,37 +1012,52 @@ class ModelExecutor:
             bt[i, :len(pages)] = pages
         return bt
 
-    def _prefill_shape(self, ns, ends):
-        """(B, C, maxp) of a packed prefill of rows of ``ns`` tokens whose
+    def _call_shape(self, ns, ends):
+        """(B, C, maxp) of a packed call of rows of ``ns`` tokens whose
         writes end at ``ends``: the batch, the widest chunk and the live
-        pages after the writes, ceil(end / page), each bucketed."""
+        pages after the writes, ceil(end / page), each bucketed. The key
+        of the call's graph and of ``recompile_keys``."""
         page = self.allocator.page_size
         return (self._bucket(len(ns)), self._bucket(max(ns)),
                 self._bucket_pages(max(-(-e // page) for e in ends)))
 
-    def _paged_prefill_call(self, rows):
-        """rows: [(rid, tokens ndarray, rope_start, write_start, n)].
-        Runs one packed prefill step; returns last-token ids (B,) on the
-        device (not synchronised)."""
+    def _paged_call(self, rows):
+        """rows: [(rid, tokens, rope_start, write_start, n)]. Runs one
+        packed call over the paged stores (a decode row is a one-token
+        chunk); returns each row's last-token id (B,) on the device (not
+        synchronised)."""
         with obs.span("exec.pack"):
-            if self._stores is None:
-                self._stores = self._make_stores()
-            B, C, maxp = self._prefill_shape(
-                [n for *_x, n in rows], [ws + n for *_x, ws, n in rows])
-            self.recompile_keys.add(("prefill", B, C, maxp))
+            rids, tokens, rope, write, ns = zip(*rows)
+            B, C, maxp = shape = self._call_shape(
+                ns, [w + n for w, n in zip(write, ns)])
+            self.recompile_keys.add(shape)
+            R = len(rows)
             toks = np.zeros((B, C), np.int32)
             pos = np.zeros((B, C), np.int32)
             lengths = np.zeros((B,), np.int32)
             new_lens = np.zeros((B,), np.int32)
-            for i, (_rid, t, rope_start, write_start, n) in enumerate(rows):
-                toks[i, :n] = t
-                pos[i] = rope_start + np.arange(C)
-                lengths[i] = write_start
-                new_lens[i] = n
+            pos[:R] = np.add.outer(rope, np.arange(C))
+            lengths[:R] = write
+            new_lens[:R] = ns
+            if C == 1:      # one token a row (a decode): one column
+                toks[:R, 0] = [t[0] for t in tokens]
+            else:           # row-major, as the rows' tokens concatenate
+                toks[:R][np.arange(C) < new_lens[:R, None]] = \
+                    np.concatenate(tokens)
             bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
-            bt[:len(rows)] = self._block_table_rows([r[0] for r in rows],
-                                                    maxp)
+            bt[:R] = self._block_table_rows(rids, maxp)
         return self._step(toks, pos, bt, lengths, new_lens)
+
+    def _run_rows(self, rows, emits):
+        """One packed call over ``rows`` and its readback: each row's KV
+        then ends at write_start + n, and a row that ``emits`` appends its
+        token."""
+        out = self._readback(self._paged_call(rows))
+        for (rid, _t, _rope, write_start, n), emit, tok in zip(rows, emits,
+                                                                out):
+            self._ctx[rid] = write_start + n
+            if emit:
+                self.emitted.setdefault(rid, []).append(int(tok))
 
     def _batched_iteration(self, prefill_rows, decode_rows):
         # waves: a request may legitimately appear twice in one plan
@@ -1066,42 +1079,13 @@ class ModelExecutor:
                     rows = [(req.rid, self._prompt_tokens(req)[rope:rope + n],
                              rope, self._ctx.get(req.rid, 0), n)
                             for req, rope, n, _d in wave]
-                out = self._readback(self._paged_prefill_call(rows))
-                for i, (req, _rope, n, done) in enumerate(wave):
-                    self._ctx[req.rid] = rows[i][3] + n
-                    if done:
-                        self.emitted.setdefault(req.rid, []).append(
-                            int(out[i]))
+                self._run_rows(rows, [done for *_x, done in wave])
         if decode_rows:
             with obs.span("exec.decode"):
-                self._decode_call(decode_rows)
-
-    def _decode_call(self, decode_rows):
-        """One fused decode step: a token for each of ``decode_rows``."""
-        with obs.span("exec.pack"):
-            if self._stores is None:
-                self._stores = self._make_stores()
-            B = self._bucket(len(decode_rows))
-            page = self.allocator.page_size
-            # each row writes one token at position ctx, so the live
-            # context after the step is ctx+1 tokens
-            maxp = self._bucket_pages(
-                max(-(-(self._ctx[r.rid] + 1) // page) for r in decode_rows))
-            self.recompile_keys.add(("decode", B, maxp))
-            toks = np.zeros((B, 1), np.int32)
-            pos = np.zeros((B, 1), np.int32)
-            lengths = np.zeros((B,), np.int32)
-            new_lens = np.zeros((B,), np.int32)
-            for i, req in enumerate(decode_rows):
-                toks[i, 0] = self.emitted[req.rid][-1]
-                pos[i, 0] = min(req.prompt_tokens + req.decoded - 1,
-                                self.max_len - 2)
-                lengths[i] = self._ctx[req.rid]
-                new_lens[i] = 1
-            bt = np.full((B, maxp), self.allocator.num_pages, np.int32)
-            bt[:len(decode_rows)] = self._block_table_rows(
-                [r.rid for r in decode_rows], maxp)
-        out = self._readback(self._step(toks, pos, bt, lengths, new_lens))
-        for i, req in enumerate(decode_rows):
-            self._ctx[req.rid] += 1
-            self.emitted[req.rid].append(int(out[i]))
+                # each row feeds back its last token, one position on
+                with obs.span("exec.pack"):
+                    rows = [(req.rid, [self.emitted[req.rid][-1]],
+                             min(req.prompt_tokens + req.decoded - 1,
+                                 self.max_len - 2), self._ctx[req.rid], 1)
+                            for req in decode_rows]
+                self._run_rows(rows, [True] * len(rows))

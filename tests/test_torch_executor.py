@@ -242,8 +242,7 @@ def test_isolated_run_clamps_to_the_pool_and_extrapolates():
 
 def test_prefix_claim_copies_the_boundary_page_in_place():
     ex = _port()
-    ex._stores = ex._make_stores()
-    store = ex._stores[0]["b0"]
+    store = ex.stores[0]["b0"]
     store.k_pages[3] = 1.5
     ex.on_prefix_claim(treq.Request(rid="c", modality=treq.Modality.TEXT,
                                     arrival=0.0, text_tokens=8,

@@ -170,12 +170,6 @@ def _counters():
     return [got.get(name, 0) for name in COUNTERS]
 
 
-def _shapes(ex):
-    """The call shapes (B, C, maxp) of the executor's recompile keys."""
-    return {(k[1], k[2], k[3]) if k[0] == "prefill" else (k[1], 1, k[2])
-            for k in ex.recompile_keys}
-
-
 def test_one_capture_per_shape_then_replays_and_the_same_tokens():
     eager = _executor(graphs=False)
     _counting(eager)
@@ -191,7 +185,8 @@ def test_one_capture_per_shape_then_replays_and_the_same_tokens():
     assert 4 in sizes and 3 in sizes
     fake = ex._capture
     assert len(fake.graphs) == len(ex._graphs) == len(set(ex._graphs))
-    assert set(ex._graphs) <= _shapes(ex)
+    # every shape at MAX_LEN is under the token bound: one graph per key
+    assert set(ex._graphs) == ex.recompile_keys
     assert len(ex._graphs) <= ex.recompile_bound()
     calls = sum(g.replays for g in fake.graphs)
     captures, replays, eager_calls = _counters()
@@ -205,14 +200,13 @@ def test_one_capture_per_shape_then_replays_and_the_same_tokens():
     assert want_launches["paged_attention"] == calls
 
 
-def test_static_inputs_are_rewritten_whole():
-    """A decode of 3 rows after one of 4 in the same bucket: row 3 of the
-    static inputs is padding again (trash page, length 0, new_lens 0)."""
-    ex = _executor()
+def _decoding(ex, n=4):
+    """``n`` running requests, prompts 20.. tokens written, one token
+    emitted each, on a fresh allocator bound to ``ex``."""
     alloc = BlockAllocator(num_pages=PAGES, page_size=PAGE)
     ex.bind_allocator(alloc)
     reqs = []
-    for i in range(4):
+    for i in range(n):
         r = Request(rid=f"r{i}", modality=Modality.TEXT, arrival=0.0,
                     text_tokens=20 + i, prompt_tokens=20 + i,
                     output_tokens=4)
@@ -221,14 +215,22 @@ def test_static_inputs_are_rewritten_whole():
         ex._ctx[r.rid] = r.prompt_tokens
         ex.emitted[r.rid] = [7 + i]
         reqs.append(r)
-    ex._decode_call(reqs)
+    return reqs
+
+
+def test_static_inputs_are_rewritten_whole():
+    """A decode of 3 rows after one of 4 in the same bucket: row 3 of the
+    static inputs is padding again (trash page, length 0, new_lens 0)."""
+    ex = _executor()
+    reqs = _decoding(ex)
+    ex._batched_iteration([], reqs)
     (shape,) = ex._graphs
     g = ex._graphs[shape]
     tokens, positions, bt, lengths, new_lens = (a.clone() for a in g.inputs)
     assert shape[0] == 4 and shape[1] == 1
     assert int(new_lens[3]) == 1 and int(lengths[3]) == 23
     assert (bt[3] != PAGES).any()
-    ex._decode_call(reqs[:3])
+    ex._batched_iteration([], reqs[:3])
     assert list(ex._graphs) == [shape]
     tokens, positions, bt, lengths, new_lens = g.inputs
     assert (bt[3] == PAGES).all()
@@ -236,6 +238,85 @@ def test_static_inputs_are_rewritten_whole():
     assert int(tokens[3, 0]) == 0 and int(positions[3, 0]) == 0
     assert int(new_lens[:3].sum()) == 3
     assert _counters() == [1, 2, 0]
+
+
+def test_a_decode_is_a_one_token_call():
+    """A decode of four rows fills the same static inputs, through the same
+    graph and recompile key, as ``_paged_call`` of the same rows written
+    as one-token chunks, and draws the same tokens."""
+    ex = _executor()
+    reqs = _decoding(ex)
+    rows = [(r.rid, [ex.emitted[r.rid][-1]], r.prompt_tokens + r.decoded - 1,
+             ex._ctx[r.rid], 1) for r in reqs]
+    ex._batched_iteration([], reqs)
+    (shape,) = ex._graphs
+    g = ex._graphs[shape]
+    decoded = [a.clone() for a in g.inputs]
+    tokens, positions, bt, lengths, new_lens = decoded
+    assert shape == (4, 1, 2) and ex.recompile_keys == {shape}
+    assert tokens[:, 0].tolist() == [7, 8, 9, 10]
+    assert positions[:, 0].tolist() == [20, 21, 22, 23]
+    assert lengths.tolist() == [20, 21, 22, 23] and new_lens.tolist() == [1] * 4
+    out = ex._paged_call(rows).tolist()
+    assert list(ex._graphs) == [shape] and ex.recompile_keys == {shape}
+    assert all(torch.equal(a, b) for a, b in zip(decoded, g.inputs))
+    assert out == [ex.emitted[r.rid][-1] for r in reqs]
+    assert _counters() == [1, 2, 0]
+
+
+def _claim(ex):
+    ex.on_prefix_claim(Request(rid="c", modality=Modality.TEXT, arrival=0.0,
+                               text_tokens=8, prompt_tokens=8,
+                               output_tokens=1),
+                       tokens=5, cow_src=3, cow_dst=7)
+
+
+def _import(ex):
+    cfg = ex.cfg        # one page of every layer's K and V, f32 on the CPU
+    ex.import_page_payload(
+        [2], [bytes(2 * cfg.num_layers * PAGE * cfg.num_kv_heads * cfg.hd * 4)])
+
+
+STORE_ENTRIES = {
+    "prefix_claim": _claim,
+    "export": lambda ex: ex.export_page_payload([1]),
+    "import": _import,
+    "call": lambda ex: ex._paged_call([("r", [5], 0, 0, 1)]),
+    "capture": lambda ex: ex._graph_for((1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(STORE_ENTRIES))
+def test_paged_stores_are_built_once(entry):
+    """Each entry builds the paged stores on first use; every later entry
+    uses the same ones; a new allocator geometry drops them, and the next
+    use builds them at it. The packed call runs eagerly, so its forward
+    is what builds them."""
+    ex = _executor(graphs=entry != "call")
+    built, make = [], ex._make_stores
+
+    def counted():
+        built.append(ex.allocator.num_pages)
+        return make()
+    ex._make_stores = counted
+
+    def bind(pages):
+        alloc = BlockAllocator(num_pages=pages, page_size=PAGE)
+        alloc.allocate("r", PAGE)
+        ex.bind_allocator(alloc)
+    bind(PAGES)
+    assert ex._stores is None
+    STORE_ENTRIES[entry](ex)
+    stores = ex._stores
+    assert built == [PAGES] and stores is not None
+    for other in sorted(STORE_ENTRIES):
+        STORE_ENTRIES[other](ex)
+    assert built == [PAGES] and ex.stores is stores
+    bind(PAGES // 2)
+    assert ex._stores is None and ex._graphs == {}
+    STORE_ENTRIES[entry](ex)
+    assert built == [PAGES, PAGES // 2]
+    assert ex.stores[0]["b0"].pages_per_layer == PAGES // 2 + 1
 
 
 def test_every_graph_is_dropped_with_the_stores():
@@ -266,7 +347,7 @@ def test_calls_above_the_token_bound_run_eagerly(monkeypatch):
     got, _ = _drive(ex)
     assert got == want
     assert ex._graphs and all(B * C <= 8 for B, C, _p in ex._graphs)
-    big = {s for s in _shapes(ex) if s[0] * s[1] > 8}
+    big = {s for s in ex.recompile_keys if s[0] * s[1] > 8}
     assert big and not big & set(ex._graphs)
     captures, replays, eager_calls = _counters()
     assert captures == len(ex._graphs) and replays > 0 and eager_calls > 0

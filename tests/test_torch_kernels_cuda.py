@@ -367,8 +367,7 @@ def test_cuda_page_payload_round_trip_is_bit_exact():
     ex = ModelExecutor(get_reduced("qwen2-vl-2b"),
                        ExecutorConfig(max_slots=2, max_len=64, num_pages=8),
                        device="cuda")
-    ex._stores = ex._make_stores()
-    stores = [s for stage in ex._stores for s in stage.values()]
+    stores = [s for stage in ex.stores for s in stage.values()]
     g = torch.Generator(device="cuda").manual_seed(0)
     for s in stores:
         assert s.k_pages.dtype == torch.bfloat16

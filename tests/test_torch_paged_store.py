@@ -158,66 +158,6 @@ def test_export_page_bytes_match_jax():
         assert tk.tobytes() == jk.tobytes() and tv.tobytes() == jv.tobytes()
 
 
-def test_paged_kv_store_matches_jax():
-    from repro.cache.paged import PagedKVStore as JKV
-    from repro_torch.cache.paged import PagedKVStore as TKV
-    P = 9
-    g = rng(8)
-    j = JKV.create(P, PAGE, KV, HD, dtype=jnp.float32)
-    t = TKV.create(P, PAGE, KV, HD, dtype=torch.float32)
-    assert t.page_size == j.page_size == PAGE
-    pages = [5, 2, 7]
-    k, v = normal(g, 10, KV, HD), normal(g, 10, KV, HD)
-    j = j.write(jnp.asarray(k), jnp.asarray(v), pages, start=1)
-    assert t.write(torch.from_numpy(k), torch.from_numpy(v), pages,
-                   start=1) is t
-    kb, vb, bt, start, new_lens = _batch(g, B=3, S=3)
-    bt = np.where(bt == PPL - 1, P - 1, bt % (P - 1)).astype(np.int32)
-    bt[:, :2] = [[0, 1], [3, 4], [6, 8]]
-    j = j.write_batch(jnp.asarray(kb), jnp.asarray(vb), jnp.asarray(bt),
-                      jnp.asarray(start), jnp.asarray(new_lens),
-                      trash_page=P - 1)
-    assert t.write_batch(torch.from_numpy(kb), torch.from_numpy(vb),
-                         torch.from_numpy(bt), torch.from_numpy(start),
-                         torch.from_numpy(new_lens), trash_page=P - 1) is t
-    live = slice(0, P - 1)      # the trash page takes colliding padding
-    np.testing.assert_array_equal(np.asarray(j.k_pages)[live],
-                                  t.k_pages.numpy()[live])
-    np.testing.assert_array_equal(np.asarray(j.v_pages)[live],
-                                  t.v_pages.numpy()[live])
-    for ids in (pages, [0, 4, 6]):
-        jk, jv = j.gather(ids)
-        tk, tv = t.gather(ids)
-        assert tk.shape == (len(ids) * PAGE, KV, HD)
-        np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
-        np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
-
-
-def test_slot_store_matches_jax():
-    from repro.cache.paged import SlotStore as JSlot
-    from repro_torch.cache.paged import SlotStore as TSlot
-    shapes = {"h": (4, 3), "conv": (2,)}
-    j = JSlot.create(3, shapes)
-    t = TSlot.create(3, shapes, {"conv": torch.float32})
-    g = rng(9)
-    for slot in (2, 0, 2):
-        vals = {n: normal(g, *sh) for n, sh in shapes.items()}
-        j = j.write(slot, {n: jnp.asarray(a) for n, a in vals.items()})
-        assert t.write(slot, {n: torch.from_numpy(a)
-                              for n, a in vals.items()}) is t
-    for slot in range(3):
-        jr, tr = j.read(slot), t.read(slot)
-        assert sorted(jr) == sorted(tr)
-        for n in shapes:
-            assert tr[n].dtype == torch.float32
-            np.testing.assert_array_equal(np.asarray(jr[n]), tr[n].numpy())
-
-
-def test_store_conforms_to_the_paged_store_protocol():
-    from repro_torch.cache.paged import PagedStore
-    assert isinstance(TStore.build(1, 2, 4, 1, 8), PagedStore)
-
-
 def _executor(**kw):
     from repro_torch.configs import get_reduced
     from repro_torch.serving.executors import ExecutorConfig, ModelExecutor
@@ -239,9 +179,8 @@ def test_page_payload_round_trip_and_length_check():
     restores every stage/block store's bytes; a blob of any other length,
     or a count mismatch, raises instead of importing part of it."""
     ex = _executor(num_pages=8)
-    ex._stores = ex._make_stores()
     g = torch.Generator().manual_seed(0)
-    for stage in ex._stores:
+    for stage in ex.stores:
         for s in stage.values():
             for a in (s.k_pages, s.v_pages):
                 a.copy_(torch.randn(a.shape, generator=g)
